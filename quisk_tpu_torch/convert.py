@@ -1,0 +1,149 @@
+"""Carry parameters and state across from ``quisk_tpu`` as numpy arrays.
+
+The JAX package's objects are flattened by the caller (``np.asarray`` of
+their leaves) into plain dictionaries of numpy arrays; this module turns
+those into the port's objects and converts chain state both ways, so both
+packages compute the same thing from the same numbers.  It imports
+neither JAX nor the JAX package.
+
+Phases: uint32 arrays on the numpy side, int64 tensors holding the same
+values in the port.  Every int64 tensor in the port's chain state is such
+a phase.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from quisk_tpu_torch._device import resolve_device
+from quisk_tpu_torch.ops.agc import AGC
+from quisk_tpu_torch.ops.demod import AMDemod, FMDemod, MixedDemod, SSBDemod
+from quisk_tpu_torch.ops.fir import OverlapSaveFIR, make_fir
+from quisk_tpu_torch.ops.fused_front import FusedTuneDecimate
+from quisk_tpu_torch.ops.iir import DCBlock, OnePole
+from quisk_tpu_torch.ops.nco import NCO, phase_tensor
+from quisk_tpu_torch.ops.resample import FracDecim
+from quisk_tpu_torch.modes import Mode
+from quisk_tpu_torch.rx.chain import RxChain
+
+
+def state_from_numpy(tree, device=None):
+    """Nested tuples/lists/dicts of numpy arrays -> the same of tensors
+    (uint32 phases become int64)."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: state_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(state_from_numpy(v, device) for v in tree)
+    a = np.asarray(tree)
+    if a.dtype == np.uint32:
+        return phase_tensor(a, device)
+    return torch.as_tensor(a.copy(), device=device)
+
+
+def state_to_numpy(tree):
+    """Inverse of :func:`state_from_numpy` (int64 phases become uint32)."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(state_to_numpy(v) for v in tree)
+    a = tree.detach().cpu().numpy()
+    return a.astype(np.uint32) if a.dtype == np.int64 else a
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.tensor(np.float32(np.asarray(v)), device=device)
+
+
+def fused_front_from_numpy(p: dict, device=None) -> FusedTuneDecimate:
+    """{"taps" [T] (forward order), "word" [C] uint32, "decim", "block"}."""
+    device = resolve_device(device)
+    taps = np.asarray(p["taps"], np.float64)
+    op = FusedTuneDecimate.create(taps, 0.0, 1.0, int(p["block"]),
+                                  int(p["decim"]), len(p["word"]),
+                                  device=device)
+    return op.with_word(p["word"])
+
+
+def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
+    """An RxChain from the arrays of a ``quisk_tpu`` RxChain.
+
+    Keys: ``channels``, ``block_in``, ``block_audio``, ``fs_audio``,
+    ``tune_base`` [C]; ``nco_word`` [C] uint32 or None; ``front`` (see
+    :func:`fused_front_from_numpy`) or None; ``stages``: [{"taps",
+    "decim", "block"}]; ``bp``: {"mask" complex [nfft] or [C, nfft],
+    "ntaps", "block"}; ``frac``: {"ratio" (num, den), "block"} or None;
+    ``demod``: {"mode" [C], "ssb_gain", "am_gain", "am_pole", "fm_gain",
+    "fm_a", "fm_b"}; ``agc``: {"target", "max_lgain", "release_inc",
+    "lookahead"} or None; ``ons``: {name: [C, 1]}.  An EXT demod plugin is
+    not carried across.
+    """
+    device = resolve_device(device)
+    C = int(p["channels"])
+    nco = front = None
+    if p.get("front") is not None:
+        front = fused_front_from_numpy(p["front"], device)
+    else:
+        nco = NCO(word=phase_tensor(p["nco_word"], device),
+                  block=int(p["block_in"]))
+    stages = tuple(make_fir(np.asarray(s["taps"]), int(s["block"]),
+                            decim=int(s["decim"]), device=device)
+                   for s in p["stages"])
+    bpp = p["bp"]
+    mask = np.asarray(bpp["mask"]).astype(np.complex64)
+    bp = OverlapSaveFIR(mask=torch.as_tensor(mask, device=device),
+                        ntaps=int(bpp["ntaps"]), block=int(bpp["block"]),
+                        nfft=mask.shape[-1])
+    frac = None
+    if p.get("frac") is not None:
+        num, den = p["frac"]["ratio"]
+        frac = FracDecim.create(Fraction(int(num), int(den)),
+                                int(p["frac"]["block"]), device=device)
+    d = p["demod"]
+    modes = np.asarray(d["mode"], np.int32)
+    demod = MixedDemod(
+        ssb=SSBDemod(gain=_f32(d["ssb_gain"], device)),
+        am=AMDemod(dc=DCBlock(a=_f32(d["am_pole"], device)),
+                   gain=_f32(d["am_gain"], device)),
+        fm=FMDemod(deemph=OnePole(a=_f32(d["fm_a"], device),
+                                  b=_f32(d["fm_b"], device)),
+                   gain=_f32(d["fm_gain"], device)),
+        ext=None, mode=torch.as_tensor(modes.copy(), device=device),
+        iq_out=bool(np.any(modes == int(Mode.DGT_IQ))))
+    agc = None
+    if p.get("agc") is not None:
+        a = p["agc"]
+        agc = AGC(target=_f32(a["target"], device),
+                  max_lgain=_f32(a["max_lgain"], device),
+                  release_inc=_f32(a["release_inc"], device),
+                  lookahead=int(a["lookahead"]))
+    ons = {k: torch.as_tensor(np.asarray(v, np.float32).copy(), device=device)
+           for k, v in p.get("ons", {}).items()}
+    return RxChain(nco=nco, front=front, stages=stages, bp=bp, frac=frac,
+                   demod=demod, agc=agc, ons=ons,
+                   tune_base=torch.as_tensor(
+                       np.asarray(p["tune_base"], np.float32).copy(),
+                       device=device),
+                   channels=C, block_in=int(p["block_in"]),
+                   block_audio=int(p["block_audio"]),
+                   fs_audio=float(p["fs_audio"]))
+
+
+_STATE_KEYS = ("nco", "front", "stages", "bp", "frac", "demod", "agc")
+
+
+def rx_state_from_numpy(s: dict, device=None) -> dict:
+    """Chain state from the numpy leaves of a ``quisk_tpu`` chain state:
+    front (phase0 uint32, hist), nco phase, stage and bp histories, frac
+    history, demod ((AM x_prev, y_prev), (FM prev, y_prev), ext) and AGC
+    (delay, lg).  The JAX chain's other stage states are empty here."""
+    return state_from_numpy({k: s[k] for k in _STATE_KEYS}, device)
+
+
+def rx_state_to_numpy(state: dict) -> dict:
+    """Chain state as numpy arrays, phases as uint32 (the layout
+    :func:`rx_state_from_numpy` reads)."""
+    return state_to_numpy({k: state[k] for k in _STATE_KEYS})

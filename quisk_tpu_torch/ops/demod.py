@@ -1,0 +1,167 @@
+"""Demodulators: SSB/CW, AM, FM, and a branch-free mixed-mode batch.
+
+Parity targets in the reference (quisk.c:1848 ``quisk_process_demodulate``):
+
+- SSB/CW (quisk.c:1910-2001): after the analytic channel filter, audio is
+  2*Re of the filter output.
+- AM (quisk.c:2002-2025): envelope |x| then a one-pole DC blocker.
+- FM (quisk.c:2026-2086): phase-difference discriminator
+  arg(x[n] * conj(x[n-1])) then one-pole de-emphasis at 300 Hz.
+
+The mixed-mode batch computes every family and selects per channel with
+``torch.where``, so the mode vector is data.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from quisk_tpu_torch._device import resolve_device
+from quisk_tpu_torch.modes import Mode
+from quisk_tpu_torch.ops.iir import DCBlock, OnePole
+
+
+@dataclasses.dataclass(frozen=True)
+class SSBDemod:
+    """Analytic-signal SSB/CW demod: audio = gain*Re(x).  Stateless."""
+
+    gain: torch.Tensor
+
+    @classmethod
+    def create(cls, device, gain: float = 2.0):
+        return cls(gain=torch.tensor(gain, dtype=torch.float32, device=device))
+
+    def init_state(self, channels: int):
+        return ()
+
+    def __call__(self, state, x: torch.Tensor):
+        return state, self.gain * x.real
+
+
+@dataclasses.dataclass(frozen=True)
+class AMDemod:
+    """Envelope detector with DC removal.  State: (x_prev, y_prev)."""
+
+    dc: DCBlock
+    gain: torch.Tensor
+
+    @classmethod
+    def create(cls, device, gain: float = 2.0, pole: float = 0.995):
+        return cls(dc=DCBlock.create(device, pole),
+                   gain=torch.tensor(gain, dtype=torch.float32, device=device))
+
+    def init_state(self, channels: int):
+        return self.dc.init_state(channels)
+
+    def __call__(self, state, x: torch.Tensor):
+        state, audio = self.dc(state, torch.abs(x))
+        return state, self.gain * audio
+
+
+@dataclasses.dataclass(frozen=True)
+class FMDemod:
+    """Phase-difference discriminator with de-emphasis.
+
+    ``gain = fs / (2 pi deviation)`` maps full deviation to audio +-1.
+    State: (prev complex sample [C], de-emphasis y_prev [C]).
+    """
+
+    deemph: OnePole
+    gain: torch.Tensor
+
+    @classmethod
+    def create(cls, sample_rate: float, device, deviation_hz: float = 5000.0,
+               deemph_hz: float = 300.0):
+        g = sample_rate / (2.0 * np.pi * deviation_hz)
+        return cls(deemph=OnePole.lowpass(deemph_hz, sample_rate, device),
+                   gain=torch.tensor(g, dtype=torch.float32, device=device))
+
+    def init_state(self, channels: int):
+        return (torch.zeros((channels,), dtype=torch.complex64,
+                            device=self.gain.device),
+                self.deemph.init_state(channels))
+
+    def discriminate(self, prev: torch.Tensor, x: torch.Tensor):
+        xm1 = torch.cat([prev[:, None], x[:, :-1]], dim=-1)
+        d = x * torch.conj(xm1)
+        # Gate vanishing magnitudes (filter warm-up, dead air): the angle of
+        # a ~1e-7 residual is numerical noise whose sign flips with one-ulp
+        # differences in the sums before it; emit 0 there.
+        disc = torch.where(torch.abs(d) > 1e-12,
+                           torch.atan2(d.imag, d.real),
+                           torch.zeros((), dtype=torch.float32,
+                                       device=x.device))
+        return x[:, -1], disc
+
+    def __call__(self, state, x: torch.Tensor):
+        prev, y_prev = state
+        prev, disc = self.discriminate(prev, x)
+        y_prev, audio = self.deemph(y_prev, disc * self.gain)
+        return (prev, y_prev), audio
+
+
+# Custom demodulator plugin slot (extdemod.c parity): a registry of ops.
+# A custom demod is any (state, x [C, B] complex) -> (state, audio [C, B])
+# op with init_state(channels); channels whose mode is Mode.EXT use it.
+_EXT_DEMODS: dict[str, object] = {}
+
+
+def register_ext_demod(name: str, factory) -> None:
+    """factory(sample_rate, channels, device) -> demod op."""
+    _EXT_DEMODS[name] = factory
+
+
+def get_ext_demod(name: str):
+    return _EXT_DEMODS[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class MixedDemod:
+    """Per-channel mode selection over a shared ``[C, B]`` batch.
+
+    Every family is computed and the per-channel result selected by the
+    ``mode`` vector (quisk.c:1909-2153 with the branches as data).  Any
+    channel created as DGT_IQ makes the chain's audio complex64
+    (``iq_out``): those rows carry the raw filtered IQ.
+    """
+
+    ssb: SSBDemod
+    am: AMDemod
+    fm: FMDemod
+    ext: object                # custom demod op | None
+    mode: torch.Tensor         # [C] int32
+    iq_out: bool = False
+
+    @classmethod
+    def create(cls, mode, sample_rate: float, channels: int,
+               fm_deviation_hz: float = 5000.0, ext_demod: str | None = None,
+               device=None):
+        device = resolve_device(device)
+        m_np = np.broadcast_to(np.asarray(mode, np.int32), (channels,))
+        ext = (get_ext_demod(ext_demod)(sample_rate, channels, device)
+               if ext_demod else None)
+        return cls(ssb=SSBDemod.create(device), am=AMDemod.create(device),
+                   fm=FMDemod.create(sample_rate, device, fm_deviation_hz),
+                   ext=ext, mode=torch.as_tensor(m_np.copy(), device=device),
+                   iq_out=bool(np.any(m_np == int(Mode.DGT_IQ))))
+
+    def init_state(self, channels: int):
+        ext_st = self.ext.init_state(channels) if self.ext is not None else ()
+        return (self.am.init_state(channels), self.fm.init_state(channels),
+                ext_st)
+
+    def __call__(self, state, x: torch.Tensor):
+        am_st, fm_st, ext_st = state
+        _, a_ssb = self.ssb((), x)
+        am_st, a_am = self.am(am_st, x)
+        fm_st, a_fm = self.fm(fm_st, x)
+        m = self.mode[:, None]
+        audio = torch.where(m == int(Mode.AM), a_am,
+                            torch.where(m == int(Mode.FM), a_fm, a_ssb))
+        if self.ext is not None:
+            ext_st, a_ext = self.ext(ext_st, x)
+            audio = torch.where(m == int(Mode.EXT), a_ext, audio)
+        return (am_st, fm_st, ext_st), audio

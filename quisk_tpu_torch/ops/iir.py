@@ -1,0 +1,126 @@
+"""First-order IIR sections as parallel recurrences.
+
+One-pole filters sit in the demod chain: AM DC removal (quisk.c:2002-2025)
+and FM de-emphasis (quisk.c:2057-2064).  ``y[n] = a*y[n-1] + b*x[n]`` is
+a composition of affine maps, evaluated over the block axis in log-depth
+(Hillis-Steele doubling), vectorised over channels; the carried state is
+the last output sample.  Long blocks (B >= 2048, B % 128 == 0, scalar
+``a``) take the chunked form of ``quisk_tpu.ops.iir``: a [128, 128]
+lower-triangular decay matmul within chunks plus a short scan over chunk
+carries, so the sums group as the reference's do.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def affine_scan(A: torch.Tensor, Bv: torch.Tensor):
+    """Inclusive scan of the maps ``y -> A[n] y + Bv[n]`` along the last
+    axis: returns (A_cum, B_cum) with y[n] = B_cum[n] + A_cum[n] * y[-1]."""
+    n = A.shape[-1]
+    s = 1
+    while s < n:
+        Bv = torch.cat([Bv[..., :s], A[..., s:] * Bv[..., :-s] + Bv[..., s:]],
+                       dim=-1)
+        A = torch.cat([A[..., :s], A[..., s:] * A[..., :-s]], dim=-1)
+        s *= 2
+    return A, Bv
+
+
+def first_order_scan(x: torch.Tensor, a, b, y_prev: torch.Tensor):
+    """All outputs of y[n] = a*y[n-1] + b*x[n] given y[-1] = y_prev.
+
+    x [C, B]; a, b scalar (0-dim tensor or float) or [C, 1]; y_prev [C].
+    """
+    a_t = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    B = x.shape[-1]
+    if a_t.ndim == 0 and B >= 2048 and B % 128 == 0:
+        return _first_order_chunked(x, a_t, b, y_prev)
+    A = torch.broadcast_to(a_t, x.shape)
+    Bv = torch.as_tensor(b, dtype=x.dtype, device=x.device) * x
+    A_cum, B_cum = affine_scan(A, Bv)
+    return B_cum + A_cum * y_prev[:, None]
+
+
+def _first_order_chunked(x: torch.Tensor, a: torch.Tensor, b,
+                         y_prev: torch.Tensor, L: int = 128) -> torch.Tensor:
+    """Chunked y[n] = a*y[n-1] + b*x[n] (scalar a).
+
+    Within chunk j (start carry c_j): y[n] = a^(n+1) c_j + sum_k a^(n-k)
+    u[k], the sum an fp32 matmul with T[n, k] = a^(n-k); the carries follow
+    c_{j+1} = a^L c_j + e_j, a (B/L)-long affine scan.  Powers are built as
+    |a|^d * sign(a)^d, since a float power of a negative base is NaN.
+    """
+    C, B = x.shape
+    nch = B // L
+    dt, dev = x.dtype, x.device
+    u = (torch.as_tensor(b, dtype=dt, device=dev) * x).reshape(C, nch, L)
+    n = torch.arange(L, device=dev)
+    d = n[:, None] - n[None, :]
+    dm = torch.clamp(d, min=0).to(dt)
+    one = torch.ones((), dtype=dt, device=dev)
+    sgn = torch.where(a < 0, -one, one)
+    mag = torch.abs(a)
+    pw = (mag ** dm) * torch.where(dm % 2 == 0, one, sgn)
+    T = torch.where(d >= 0, pw, torch.zeros((), dtype=dt, device=dev))
+    yin = torch.matmul(u, T.T)                              # [C, nch, L]
+    e = yin[:, :, -1]
+    aL = (mag ** L) * (sgn ** (L % 2) if L % 2 else 1.0)
+    Aj = torch.broadcast_to(aL, (C, nch))
+    Acum, Ecum = affine_scan(Aj, e)
+    s = Ecum + Acum * y_prev[:, None]                        # chunk end states
+    c = torch.cat([y_prev[:, None], s[:, :-1]], dim=-1)
+    n1 = (n + 1).to(dt)
+    decay = (mag ** n1) * torch.where((n + 1) % 2 == 0, one, sgn)
+    y = yin + c[:, :, None] * decay[None, None, :]
+    return y.reshape(C, B)
+
+
+@dataclasses.dataclass(frozen=True)
+class OnePole:
+    """y[n] = a*y[n-1] + b*x[n].  Lowpass: a = exp(-2 pi fc / fs), b = 1-a."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+
+    @classmethod
+    def lowpass(cls, fc_hz: float, fs: float, device):
+        a = float(np.exp(-2.0 * np.pi * fc_hz / fs))
+        return cls(a=torch.tensor(a, dtype=torch.float32, device=device),
+                   b=torch.tensor(1.0 - a, dtype=torch.float32,
+                                  device=device))
+
+    def init_state(self, channels: int) -> torch.Tensor:
+        return torch.zeros((channels,), dtype=torch.float32,
+                           device=self.a.device)
+
+    def __call__(self, y_prev: torch.Tensor, x: torch.Tensor):
+        y = first_order_scan(x, self.a, self.b, y_prev)
+        return y[:, -1], y
+
+
+@dataclasses.dataclass(frozen=True)
+class DCBlock:
+    """DC blocker y[n] = x[n] - x[n-1] + a*y[n-1] (Lyons; the reference's
+    AM path).  State is (x_prev [C], y_prev [C])."""
+
+    a: torch.Tensor
+
+    @classmethod
+    def create(cls, device, pole: float = 0.995):
+        return cls(a=torch.tensor(pole, dtype=torch.float32, device=device))
+
+    def init_state(self, channels: int):
+        z = torch.zeros((channels,), dtype=torch.float32,
+                        device=self.a.device)
+        return z, z
+
+    def __call__(self, state, x: torch.Tensor):
+        x_prev, y_prev = state
+        d = x - torch.cat([x_prev[:, None], x[:, :-1]], dim=-1)
+        y = first_order_scan(d, self.a, 1.0, y_prev)
+        return (x[:, -1], y[:, -1]), y

@@ -1,0 +1,91 @@
+"""The port's host-side modules equal the JAX package's: decimation plans,
+block sizes and designed taps bit for bit; and importing the port loads
+neither JAX nor the JAX package."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from quisk_tpu.modes import CW_PITCH as J_CW_PITCH
+from quisk_tpu.modes import DEFAULT_BANDWIDTH as J_BW
+from quisk_tpu.modes import Mode as JMode
+from quisk_tpu.ops import design as jdesign
+from quisk_tpu.rx import planner as jplanner
+
+from quisk_tpu_torch.modes import CW_PITCH, DEFAULT_BANDWIDTH, Mode
+from quisk_tpu_torch.ops import design
+from quisk_tpu_torch.rx import planner
+
+RATES = [48e3, 192e3, 384e3, 960e3, 250e3]
+
+
+def test_modes_equal():
+    assert [(m.name, int(m)) for m in Mode] == [(m.name, int(m))
+                                               for m in JMode]
+    assert {int(k): v for k, v in DEFAULT_BANDWIDTH.items()} == {
+        int(k): v for k, v in J_BW.items()}
+    assert CW_PITCH == J_CW_PITCH
+    for m in Mode:
+        assert m.is_ssb_like == JMode(int(m)).is_ssb_like
+        assert m.is_lower == JMode(int(m)).is_lower
+
+
+@pytest.mark.parametrize("fs", RATES)
+@pytest.mark.parametrize("audio_block", [512, 2048])
+def test_plan_equal(fs, audio_block):
+    p = planner.plan_decimation(fs)
+    q = jplanner.plan_decimation(fs)
+    assert (p.fs_in, p.fs_out_nominal, p.fs_out, p.stages, p.frac,
+            p.fs_mid) == (q.fs_in, q.fs_out_nominal, q.fs_out, q.stages,
+                          q.frac, q.fs_mid)
+    assert p.stage_rates() == q.stage_rates()
+    assert p.int_decim == q.int_decim
+    assert (planner.plan_block_sizes(p, audio_block)
+            == jplanner.plan_block_sizes(q, audio_block))
+
+
+def test_250k_plan_has_frac():
+    p = planner.plan_decimation(250e3)
+    assert p.stages == (5,)
+    assert (p.frac.numerator, p.frac.denominator) == (25, 24)
+
+
+@pytest.mark.parametrize("fs", RATES)
+def test_decimator_taps_equal(fs):
+    plan = planner.plan_decimation(fs)
+    for d, fs_stage in zip(plan.stages, plan.stage_rates()):
+        if d == 2:
+            a, b = design.halfband(45), jdesign.halfband(45)
+        else:
+            a = design.decimator(d, fs_stage, atten_db=100.0)
+            b = jdesign.decimator(d, fs_stage, atten_db=100.0)
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("band", [(300.0, 3100.0), (-3100.0, -300.0),
+                                  (-3000.0, 3000.0), (-6250.0, 6250.0),
+                                  (350.0, 850.0)])
+def test_channel_taps_equal(band):
+    for fs in (48e3, 50e3):
+        assert np.array_equal(design.bandpass_analytic(1025, *band, fs),
+                              jdesign.bandpass_analytic(1025, *band, fs))
+    notches = ((1000.0, 100.0), (9000.0, 50.0))
+    assert np.array_equal(
+        design.bandpass_with_notches(1025, *band, 48e3, notches),
+        jdesign.bandpass_with_notches(1025, *band, 48e3, notches))
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, quisk_tpu_torch, quisk_tpu_torch.convert, "
+            "quisk_tpu_torch.ops.fused_front\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'flax', 'quisk_tpu.')) "
+            "or m == 'quisk_tpu']\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=Path(__file__).resolve().parents[1])
+    assert r.returncode == 0, r.stderr
