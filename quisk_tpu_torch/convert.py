@@ -8,7 +8,8 @@ neither JAX nor the JAX package.
 
 Phases: uint32 arrays on the numpy side, int64 tensors holding the same
 values in the port.  Every int64 tensor in the port's chain state is such
-a phase.
+a phase; the counters of the squelches and of the hang AGCs are int32 on
+both sides and pass unchanged.
 """
 
 from __future__ import annotations
@@ -19,13 +20,16 @@ import numpy as np
 import torch
 
 from quisk_tpu_torch._device import resolve_device
-from quisk_tpu_torch.ops.agc import AGC
+from quisk_tpu_torch.ops.agc import AGC, WcpAGC
 from quisk_tpu_torch.ops.demod import AMDemod, FMDemod, MixedDemod, SSBDemod
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR, make_fir
 from quisk_tpu_torch.ops.fused_front import FusedTuneDecimate
 from quisk_tpu_torch.ops.iir import DCBlock, OnePole
 from quisk_tpu_torch.ops.nco import NCO, phase_tensor
+from quisk_tpu_torch.ops.noise import AutoNotch, NoiseBlanker
+from quisk_tpu_torch.ops.nr import BlockLMS, SpectralNR
 from quisk_tpu_torch.ops.resample import FracDecim
+from quisk_tpu_torch.ops.squelch import FMSquelch, SSBSquelch
 from quisk_tpu_torch.modes import Mode
 from quisk_tpu_torch.rx.chain import RxChain
 
@@ -58,14 +62,79 @@ def _f32(v, device) -> torch.Tensor:
     return torch.tensor(np.float32(np.asarray(v)), device=device)
 
 
+def _f32_vec(v, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(v, np.float32).copy(), device=device)
+
+
 def fused_front_from_numpy(p: dict, device=None) -> FusedTuneDecimate:
-    """{"taps" [T] (forward order), "word" [C] uint32, "decim", "block"}."""
+    """{"taps" [T] (forward order), "word" [C] uint32, "decim", "block"}
+    and, optionally, "nb_detect" ({"avg_win", "kwidth"})."""
     device = resolve_device(device)
     taps = np.asarray(p["taps"], np.float64)
     op = FusedTuneDecimate.create(taps, 0.0, 1.0, int(p["block"]),
                                   int(p["decim"]), len(p["word"]),
+                                  nb_detect=p.get("nb_detect"),
                                   device=device)
     return op.with_word(p["word"])
+
+
+def _agc_from_numpy(a: dict, device):
+    if "attack_mult" not in a:
+        return AGC(target=_f32(a["target"], device),
+                   max_lgain=_f32(a["max_lgain"], device),
+                   release_inc=_f32(a["release_inc"], device),
+                   lookahead=int(a["lookahead"]))
+    ints = ("hang_samples", "hang_enable", "lookahead")
+    return WcpAGC(k={n: _f32(v, device) for n, v in a.items()
+                     if n not in ints},
+                  hang_samples=int(a["hang_samples"]),
+                  hang_enable=bool(a["hang_enable"]),
+                  lookahead=int(a["lookahead"]))
+
+
+def _featured_from_numpy(p: dict, device) -> dict:
+    """The optional stages of an RxChain, each None where its key is."""
+    out = dict.fromkeys(("nb", "notch", "nr", "anf", "squelch", "fm_sq"))
+    if p.get("nb") is not None:
+        a = p["nb"]
+        out["nb"] = NoiseBlanker(limit=_f32(a["limit"], device),
+                                 avg_win=int(a["avg_win"]),
+                                 kwidth=int(a["kwidth"]), pool=int(a["pool"]))
+    if p.get("notch") is not None:
+        a = p["notch"]
+        out["notch"] = AutoNotch(
+            window=_f32_vec(a["window"], device),
+            depth_bins=int(a["depth_bins"]), n_notch=int(a["n_notch"]),
+            block=int(a["block"]), nfft=int(a["nfft"]),
+            ntaps=int(a["ntaps"]), ema=float(a["ema"]),
+            snr_open=float(a["snr_open"]))
+    if p.get("nr") is not None:
+        a = p["nr"]
+        out["nr"] = SpectralNR(
+            window=_f32_vec(a["window"], device), fft=int(a["fft"]),
+            block=int(a["block"]), alpha=float(a["alpha"]),
+            noise_up=float(a["noise_up"]), noise_down=float(a["noise_down"]),
+            gain_floor=float(a["gain_floor"]))
+    if p.get("anf") is not None:
+        a = p["anf"]
+        out["anf"] = BlockLMS(
+            mu=_f32(a["mu"], device), taps=int(a["taps"]),
+            delay=int(a["delay"]), block=int(a["block"]), sub=int(a["sub"]),
+            notch=bool(a["notch"]), leak=float(a["leak"]),
+            fdaf=bool(a["fdaf"]))
+    if p.get("squelch") is not None:
+        a = p["squelch"]
+        out["squelch"] = SSBSquelch(
+            threshold=_f32(a["threshold"], device),
+            hold_blocks=int(a["hold_blocks"]), block=int(a["block"]),
+            fft_size=int(a["fft_size"]), ramp=int(a["ramp"]),
+            f_lo_bin=int(a["f_lo_bin"]), f_hi_bin=int(a["f_hi_bin"]))
+    if p.get("fm_sq") is not None:
+        a = p["fm_sq"]
+        out["fm_sq"] = FMSquelch(
+            threshold_db=_f32(a["threshold_db"], device),
+            hold_blocks=int(a["hold_blocks"]), ramp=int(a["ramp"]))
+    return out
 
 
 def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
@@ -78,7 +147,15 @@ def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
     "ntaps", "block"}; ``frac``: {"ratio" (num, den), "block"} or None;
     ``demod``: {"mode" [C], "ssb_gain", "am_gain", "am_pole", "fm_gain",
     "fm_a", "fm_b"}; ``agc``: {"target", "max_lgain", "release_inc",
-    "lookahead"} or None; ``ons``: {name: [C, 1]}.  An EXT demod plugin is
+    "lookahead"}, or the WcpAGC's constants by name with "hang_samples",
+    "hang_enable" and "lookahead", or None; ``ons``: {name: [C, 1]}.
+    Optional stages, each a dict of the JAX op's fields by name or
+    None/absent: ``nb`` (limit, avg_win, kwidth, pool), ``notch`` (window,
+    depth_bins, n_notch, block, nfft, ntaps, ema, snr_open), ``nr``
+    (window, fft, block, alpha, noise_up, noise_down, gain_floor), ``anf``
+    (mu, taps, delay, block, sub, notch, leak, fdaf), ``squelch``
+    (threshold, hold_blocks, block, fft_size, ramp, f_lo_bin, f_hi_bin),
+    ``fm_sq`` (threshold_db, hold_blocks, ramp).  An EXT demod plugin is
     not carried across.
     """
     device = resolve_device(device)
@@ -113,17 +190,13 @@ def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
                    gain=_f32(d["fm_gain"], device)),
         ext=None, mode=torch.as_tensor(modes.copy(), device=device),
         iq_out=bool(np.any(modes == int(Mode.DGT_IQ))))
-    agc = None
-    if p.get("agc") is not None:
-        a = p["agc"]
-        agc = AGC(target=_f32(a["target"], device),
-                  max_lgain=_f32(a["max_lgain"], device),
-                  release_inc=_f32(a["release_inc"], device),
-                  lookahead=int(a["lookahead"]))
+    agc = (_agc_from_numpy(p["agc"], device)
+           if p.get("agc") is not None else None)
     ons = {k: torch.as_tensor(np.asarray(v, np.float32).copy(), device=device)
            for k, v in p.get("ons", {}).items()}
     return RxChain(nco=nco, front=front, stages=stages, bp=bp, frac=frac,
                    demod=demod, agc=agc, ons=ons,
+                   **_featured_from_numpy(p, device),
                    tune_base=torch.as_tensor(
                        np.asarray(p["tune_base"], np.float32).copy(),
                        device=device),
@@ -132,14 +205,18 @@ def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
                    fs_audio=float(p["fs_audio"]))
 
 
-_STATE_KEYS = ("nco", "front", "stages", "bp", "frac", "demod", "agc")
+_STATE_KEYS = ("nbg", "nco", "front", "stages", "bp", "frac", "demod", "agc",
+               "nb", "notch", "nr", "anf", "squelch", "fm_sq")
 
 
 def rx_state_from_numpy(s: dict, device=None) -> dict:
     """Chain state from the numpy leaves of a ``quisk_tpu`` chain state:
     front (phase0 uint32, hist), nco phase, stage and bp histories, frac
-    history, demod ((AM x_prev, y_prev), (FM prev, y_prev), ext) and AGC
-    (delay, lg).  The JAX chain's other stage states are empty here."""
+    history, demod ((AM x_prev, y_prev), (FM prev, y_prev), ext), AGC
+    ((delay, lg), or the WcpAGC's dict), the carried blanker gain ``nbg``
+    and the states of nb, notch, nr, anf, squelch and fm_sq (empty tuples
+    for stages the chain lacks).  The conditioner's state is not carried
+    (raw-IQ conditioning is not ported)."""
     return state_from_numpy({k: s[k] for k in _STATE_KEYS}, device)
 
 

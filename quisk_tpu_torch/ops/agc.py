@@ -1,4 +1,4 @@
-"""Delay-line (lookahead) AGC.
+"""Delay-line (lookahead) AGC, and the WDSP AGC with its hang machine.
 
 Parity: the reference AGC (quisk.c:2162 ``process_agc``) keeps a ~15 ms
 lookahead buffer, tracks the max magnitude in it, drops gain at once on
@@ -7,6 +7,10 @@ recurrence is ``lg[n] = min(lg[n-1] + d, l[n])``, a composition of the
 associative maps ``x -> min(x + d, l)``, evaluated over the block in
 log-depth (Hillis-Steele doubling).  The lookahead envelope is a sliding
 maximum by the van Herk two-pass cummax.
+
+:class:`HangAGC` and :class:`WcpAGC` (wdsp/wcpAGC.c) carry a state machine
+that decides per sample, so they run a per-sample loop over the block
+(ops/scanutil.py) with the channels vectorised.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import numpy as np
 import torch
 
 from quisk_tpu_torch._device import resolve_device
+from quisk_tpu_torch.ops.scanutil import time_scan
+from quisk_tpu_torch.oracle.wcpagc import WcpParams
 
 
 def sliding_max(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -102,10 +108,213 @@ class AGC:
         W = self.lookahead
         B = a.shape[-1]
         ext = torch.cat([delay, a], dim=-1)               # [C, W+B]
-        env = sliding_max(torch.abs(ext), W)[:, :B]
-        limit = torch.minimum(
-            torch.log(self.target / torch.clamp(env, min=1e-9)),
-            self.max_lgain)
+        limit = _gain_limit(torch.abs(ext), W, B, self.target,
+                            self.max_lgain)
         lg = min_scan(limit, self.release_inc, lg_prev)
         out = ext[:, :B] * torch.exp(lg)
         return (ext[:, ext.shape[-1] - W:], lg[:, -1]), out
+
+
+def _gain_limit(ext_abs: torch.Tensor, W: int, B: int, target, max_lgain):
+    """Log of the largest gain that keeps each delayed sample's lookahead
+    window at or under ``target``, capped at ``max_lgain``."""
+    env = sliding_max(ext_abs, W)[:, :B]
+    return torch.minimum(torch.log(target / torch.clamp(env, min=1e-9)),
+                         max_lgain)
+
+
+@dataclasses.dataclass(frozen=True)
+class HangAGC:
+    """wcpAGC-style AGC with a hang interval (wdsp/wcpAGC.c): the gain
+    holds for ``hang_samples`` after a peak before the exponential
+    recovery starts, so voice between syllables keeps a steady gain.  The
+    gain limit comes from the lookahead sliding max (attack); a per-sample
+    loop carries (log-gain, hang counter): the gain drops at once to the
+    limit and rises only when the counter has expired.
+
+    State: (delay [C, lookahead], log-gain [C], hang counter [C] int32)."""
+
+    target: torch.Tensor
+    max_lgain: torch.Tensor
+    release_inc: torch.Tensor
+    hang_samples: int
+    lookahead: int
+
+    @classmethod
+    def create(cls, sample_rate: float, target: float = 0.9,
+               max_gain_db: float = 80.0, release_db_per_s: float = 60.0,
+               hang_ms: float = 250.0, lookahead_ms: float = 15.0,
+               device=None):
+        base = AGC.create(sample_rate, target, max_gain_db, release_db_per_s,
+                          lookahead_ms, device=device)
+        return cls(target=base.target, max_lgain=base.max_lgain,
+                   release_inc=base.release_inc,
+                   hang_samples=max(1, int(hang_ms * 1e-3 * sample_rate)),
+                   lookahead=base.lookahead)
+
+    def init_state(self, channels: int):
+        dev = self.target.device
+        return (torch.zeros((channels, self.lookahead), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((channels,), dtype=torch.float32, device=dev),
+                torch.zeros((channels,), dtype=torch.int32, device=dev))
+
+    def __call__(self, state, a: torch.Tensor):
+        delay, lg0, hang0 = state
+        W, B = self.lookahead, a.shape[-1]
+        ext = torch.cat([delay, a], dim=-1)
+        limit = _gain_limit(torch.abs(ext), W, B, self.target,
+                            self.max_lgain)
+        hang_full = torch.full_like(hang0, self.hang_samples)
+
+        def step(carry, lim):
+            lg, hang = carry
+            attack = lim < lg                      # must reduce gain now
+            lg = torch.where(attack, lim, torch.where(
+                hang > 0, lg, torch.minimum(lg + self.release_inc, lim)))
+            hang = torch.where(attack, hang_full,
+                               torch.clamp(hang - 1, min=0))
+            return (lg, hang), lg
+
+        (lg_f, hang_f), lg = time_scan(step, (lg0, hang0), limit)
+        return (ext[:, ext.shape[-1] - W:], lg_f, hang_f), (
+            ext[:, :B] * torch.exp(lg))
+
+
+_WCP_CONSTANTS = ("attack_mult", "decay_mult", "fast_decay_mult",
+                  "fast_backmult", "hang_backmult", "hang_decay_mult",
+                  "out_target", "min_volts", "slope_constant", "hang_level",
+                  "pop_ratio", "inv_max_input")
+
+
+@dataclasses.dataclass(frozen=True)
+class WcpAGC:
+    """Conformance-exact WDSP AGC (wdsp/wcpAGC.c:161-342 ``xwcpagc``).
+
+    The full algorithm: attack_buffsize lookahead delay, sliding max of
+    the envelope over the attack window, fast and hang back-averages of
+    the output-side envelope, and the 5-state machine on ``volts``
+    (0 attack/track, 1 fast decay after a pop, 2 hang hold, 3 normal
+    decay, 4 post-hang decay), finished by the log-slope gain law
+    ``mult = (out_target - slope*min(0, log10(volts/max_input)))/volts``.
+
+    Held sample for sample to the float64 oracle (oracle/wcpagc.py).  The
+    window max is block-parallel (van Herk); the state machine is a
+    per-sample Python loop over the block with channels vectorised — exact
+    but slow on a card (thousands of small launches per block).
+
+    ``k`` holds the derived constants (loadWcpAGC, wcpAGC.c:115-146) as
+    0-dim float32 tensors.  State: a dict of delay [C, lookahead], volts,
+    save_volts, fast_ba, hang_ba (float32 [C]) and hang_counter, state,
+    decay_type (int32 [C])."""
+
+    k: dict
+    hang_samples: int
+    hang_enable: bool
+    lookahead: int
+
+    @classmethod
+    def create(cls, sample_rate: float, device=None, **overrides):
+        device = resolve_device(device)
+        p = WcpParams(sample_rate=sample_rate, **overrides)
+        d = {**p.derived(), "pop_ratio": p.pop_ratio,
+             "inv_max_input": 1.0 / p.max_input}
+        k = {name: torch.tensor(np.float32(d[name]), device=device)
+             for name in _WCP_CONSTANTS}
+        return cls(k=k, hang_samples=d["hangtime_samples"],
+                   hang_enable=bool(p.hang_enable),
+                   lookahead=p.attack_buffsize)
+
+    def init_state(self, channels: int):
+        dev = self.k["out_target"].device
+
+        def z(dtype):
+            return torch.zeros((channels,), dtype=dtype, device=dev)
+        return {
+            "delay": torch.zeros((channels, self.lookahead),
+                                 dtype=torch.float32, device=dev),
+            "volts": z(torch.float32), "save_volts": z(torch.float32),
+            "fast_ba": z(torch.float32), "hang_ba": z(torch.float32),
+            "hang_counter": z(torch.int32), "state": z(torch.int32),
+            "decay_type": z(torch.int32),
+        }
+
+    def __call__(self, state, a: torch.Tensor):
+        st, k = state, self.k
+        A, B = self.lookahead, a.shape[-1]
+        ext = torch.cat([st["delay"], a], dim=-1)          # [C, A+B]
+        env_ext = torch.abs(ext)
+        # trailing attack-window max ending at each input sample: with the
+        # carried samples this is the right-looking window at offset 1
+        ring_max = sliding_max(env_ext[:, 1:], A)[:, :B]
+        abs_out = env_ext[:, :B]                           # delayed by A
+        where = torch.where
+
+        def const(v):
+            return torch.full_like(st["state"], v)
+        c0, c1, c2, c3, c4 = (const(v) for v in range(5))
+        hang_full = const(self.hang_samples)
+
+        def step(carry, xs):
+            volts, save, fba, hba, hc, s, dt = carry
+            rm, ao = xs
+            fba = k["fast_backmult"] * ao + (1 - k["fast_backmult"]) * fba
+            hba = k["hang_backmult"] * ao + (1 - k["hang_backmult"]) * hba
+            hc = torch.clamp(hc - 1, min=0)
+
+            dv = rm - volts
+            att = volts + dv * k["attack_mult"]
+            dec = volts + dv * k["decay_mult"]
+            fdec = volts + dv * k["fast_decay_mult"]
+            hdec = volts + dv * k["hang_decay_mult"]
+            attack = rm >= volts
+            if self.hang_enable:
+                hang_ok = hba > k["hang_level"]
+            else:
+                hang_ok = torch.zeros_like(attack)
+
+            # state 0: attack / pop fast-decay / hang entry / decay
+            pop = volts > k["pop_ratio"] * fba
+            v0 = where(attack, att, where(pop, fdec,
+                                          where(hang_ok, volts, dec)))
+            s0 = where(attack, c0, where(pop, c1, where(hang_ok, c2, c3)))
+            enter_hang = ~attack & ~pop & hang_ok
+            hc0 = where(enter_hang, hang_full, hc)
+            dt0 = where(attack | pop, dt, where(hang_ok, c1, c0))
+            # state 1: fast decay toward save_volts
+            above = volts > save
+            v1 = where(attack, att, where(above, fdec, where(
+                hc > 0, volts, where(dt == 0, dec, hdec))))
+            s1 = where(attack, c0, where(above, c1, where(
+                hc > 0, c2, where(dt == 0, c3, c4))))
+            # state 2: hang hold
+            v2 = where(attack, att, where(hc == 0, hdec, volts))
+            s2 = where(attack, c0, where(hc == 0, c4, c2))
+            # states 3 / 4: plain decay / post-hang decay
+            v3 = where(attack, att, dec)
+            s3 = where(attack, c0, c3)
+            v4 = where(attack, att, hdec)
+            s4 = where(attack, c0, c4)
+
+            # re-entering attack from 2/3/4 snapshots save_volts
+            save = where((s >= 2) & attack, volts, save)
+            volts_n = where(s == 0, v0, where(s == 1, v1, where(
+                s == 2, v2, where(s == 3, v3, v4))))
+            s_n = where(s == 0, s0, where(s == 1, s1, where(
+                s == 2, s2, where(s == 3, s3, s4))))
+            hc = where(s == 0, hc0, hc)
+            dt = where(s == 0, dt0, dt)
+
+            volts_n = torch.maximum(volts_n, k["min_volts"])
+            mult = (k["out_target"] - k["slope_constant"] * torch.clamp(
+                torch.log10(k["inv_max_input"] * volts_n), max=0.0)
+                    ) / volts_n
+            return (volts_n, save, fba, hba, hc, s_n, dt), mult
+
+        names = ("volts", "save_volts", "fast_ba", "hang_ba", "hang_counter",
+                 "state", "decay_type")
+        carry, mult = time_scan(step, tuple(st[n] for n in names),
+                                (ring_max, abs_out))
+        new_st = dict(zip(names, carry))
+        new_st["delay"] = ext[:, ext.shape[-1] - A:]
+        return new_st, ext[:, :B] * mult

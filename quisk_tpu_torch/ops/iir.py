@@ -1,4 +1,4 @@
-"""First-order IIR sections as parallel recurrences.
+"""First- and second-order IIR sections as parallel recurrences.
 
 One-pole filters sit in the demod chain: AM DC removal (quisk.c:2002-2025)
 and FM de-emphasis (quisk.c:2057-2064).  ``y[n] = a*y[n-1] + b*x[n]`` is
@@ -7,7 +7,8 @@ a composition of affine maps, evaluated over the block axis in log-depth
 the last output sample.  Long blocks (B >= 2048, B % 128 == 0, scalar
 ``a``) take the chunked form of ``quisk_tpu.ops.iir``: a [128, 128]
 lower-triangular decay matmul within chunks plus a short scan over chunk
-carries, so the sums group as the reference's do.
+carries, so the sums group as the reference's do.  :class:`Biquad` runs
+the same log-step scan over 2x2 affine maps.
 """
 
 from __future__ import annotations
@@ -124,3 +125,79 @@ class DCBlock:
         d = x - torch.cat([x_prev[:, None], x[:, :-1]], dim=-1)
         y = first_order_scan(d, self.a, 1.0, y_prev)
         return (x[:, -1], y[:, -1]), y
+
+
+def _rbj(b0, b1, b2, a1, a2, a0, device) -> "Biquad":
+    return Biquad(*(torch.tensor(np.float32(v / a0), device=device)
+                    for v in (b0, b1, b2, a1, a2)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Biquad:
+    """Second-order IIR section (direct form I) as a parallel recurrence
+    (wdsp/iir.c snotch / speak / mpeak).  The feedback pair
+    (y[n-1], y[n-2]) evolves linearly, s[n] = A s[n-1] + [f[n], 0], so the
+    block is a log-step scan over 2x2 affine maps.  A is the same at every
+    step: its running products A^(n+1) are scanned once per block as
+    [B, 2, 2] and shared by all channels.
+
+    State: (x1, x2, y1, y2), each [C]."""
+
+    b0: torch.Tensor
+    b1: torch.Tensor
+    b2: torch.Tensor
+    a1: torch.Tensor
+    a2: torch.Tensor
+
+    @classmethod
+    def notch(cls, f0_hz: float, fs: float, device, q: float = 30.0):
+        """RBJ cookbook notch (zero at f0)."""
+        w0 = 2.0 * np.pi * f0_hz / fs
+        alpha = np.sin(w0) / (2.0 * q)
+        c = np.cos(w0)
+        return _rbj(1.0, -2.0 * c, 1.0, -2.0 * c, 1.0 - alpha, 1.0 + alpha,
+                    device)
+
+    @classmethod
+    def peak(cls, f0_hz: float, fs: float, device, q: float = 10.0,
+             gain_db: float = 12.0):
+        """RBJ peaking EQ."""
+        A = 10.0 ** (gain_db / 40.0)
+        w0 = 2.0 * np.pi * f0_hz / fs
+        alpha = np.sin(w0) / (2.0 * q)
+        c = np.cos(w0)
+        return _rbj(1.0 + alpha * A, -2.0 * c, 1.0 - alpha * A, -2.0 * c,
+                    1.0 - alpha, 1.0 + alpha / A, device)
+
+    @classmethod
+    def highpass(cls, f0_hz: float, fs: float, device, q: float = 0.7071):
+        w0 = 2.0 * np.pi * f0_hz / fs
+        alpha = np.sin(w0) / (2.0 * q)
+        c = np.cos(w0)
+        return _rbj((1.0 + c) / 2.0, -(1.0 + c), (1.0 + c) / 2.0, -2.0 * c,
+                    1.0 - alpha, 1.0 + alpha, device)
+
+    def init_state(self, channels: int):
+        z = torch.zeros((channels,), dtype=torch.float32,
+                        device=self.b0.device)
+        return (z, z, z, z)
+
+    def __call__(self, state, x: torch.Tensor):
+        x1, x2, y1, y2 = state
+        B = x.shape[-1]
+        xm1 = torch.cat([x1[:, None], x[:, :-1]], dim=-1)
+        xm2 = torch.cat([x2[:, None], x1[:, None], x[:, :-2]], dim=-1)
+        f = self.b0 * x + self.b1 * xm1 + self.b2 * xm2
+        one, zero = torch.ones_like(self.a1), torch.zeros_like(self.a1)
+        A = torch.stack([torch.stack([-self.a1, -self.a2]),
+                         torch.stack([one, zero])]).expand(B, 2, 2)
+        bv = torch.stack([f, torch.zeros_like(f)], dim=-1)   # [C, B, 2]
+        s = 1
+        while s < B:
+            bv = torch.cat([bv[:, :s], torch.einsum(
+                "bij,cbj->cbi", A[s:], bv[:, :-s]) + bv[:, s:]], dim=1)
+            A = torch.cat([A[:s], torch.matmul(A[s:], A[:-s])], dim=0)
+            s *= 2
+        s0 = torch.stack([y1, y2], dim=-1)                   # [C, 2]
+        y = (torch.einsum("bij,cj->cbi", A, s0) + bv)[..., 0]
+        return (x[:, -1], x[:, -2], y[:, -1], y[:, -2]), y

@@ -1,4 +1,5 @@
-"""The composed receive chain: tune -> decimate -> filter -> demod -> AGC.
+"""The composed receive chain: blank -> tune -> decimate -> filter -> demod
+-> notch / ANF / NR -> AGC -> squelch.
 
 The per-block RX pipeline of the reference (``quisk_process_samples``,
 quisk.c:2289): complex tune by NCO, decimation, channel filter and
@@ -7,9 +8,20 @@ a ``[channels, block]`` tensor, so one step demodulates many independent
 receivers.  Shapes and rates are static (chosen by the planner); tunables
 (NCO words, filter masks, mode ids) are tensors.
 
+Stage order follows the reference RX path (quisk.c:2289): blanker on raw
+IQ, tune, decimate, channel filter, demodulate, then the audio processors
+(auto-notch, LMS notch and spectral NR before the AGC, squelch muting
+last).  Every optional stage has a ``[C, 1]`` blend weight in ``ons``:
+1 is the stage's output, 0 an exact pass-through.
+
 With ``fused_frontend`` the whole leading run of decimators folds into one
 filter by the cascade identity and runs, with the mix, in the CUDA front
-kernel (ops/fused_front.py).
+kernel (ops/fused_front.py).  The JAX chain fuses only when the channel
+count is a multiple of 128 and its VMEM model allows; this chain fuses
+whenever ``fused_frontend`` is set.  When the noise blanker runs on the
+16:1 coarse grid (pool 16: wideband rates such as 960 kS/s) its detection
+and gain run inside the front kernel too (the NB-detect mode): the blanker
+then adds no pass over the full-rate input.
 """
 
 from __future__ import annotations
@@ -23,23 +35,20 @@ import torch
 from quisk_tpu_torch._device import resolve_device
 from quisk_tpu_torch.modes import CW_PITCH, DEFAULT_BANDWIDTH, Mode
 from quisk_tpu_torch.ops import design
-from quisk_tpu_torch.ops.agc import AGC
+from quisk_tpu_torch.ops.agc import AGC, WcpAGC
 from quisk_tpu_torch.ops.demod import MixedDemod
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR, make_fir
 from quisk_tpu_torch.ops.fused_front import FusedTuneDecimate
 from quisk_tpu_torch.ops.nco import NCO, freq_word
+from quisk_tpu_torch.ops.noise import AutoNotch, NoiseBlanker
+from quisk_tpu_torch.ops.nr import BlockLMS, SpectralNR
 from quisk_tpu_torch.ops.resample import FracDecim
+from quisk_tpu_torch.ops.squelch import FMSquelch, SSBSquelch
 from quisk_tpu_torch.rx.planner import plan_block_sizes, plan_decimation
 
 # optional stages of quisk_tpu.rx.RxChainConfig and the port slice that
 # brings each; until then asking for one raises
 _LATER = {
-    "noise_blanker": "slice 2 (featured RX)",
-    "auto_notch": "slice 2 (featured RX)",
-    "nr": "slice 2 (featured RX)",
-    "anf": "slice 2 (featured RX)",
-    "squelch": "slice 2 (featured RX)",
-    "fm_squelch": "slice 2 (featured RX)",
     "front_cond": "slice 3 (raw-IQ conditioning)",
     "dc_remove_bw": "slice 3 (raw-IQ conditioning)",
 }
@@ -77,8 +86,12 @@ def _bands(modes, bandwidth_hz, cw_pitch):
 @dataclasses.dataclass(frozen=True)
 class RxChainConfig:
     """Static configuration of a receive chain (the fields of
-    ``quisk_tpu.rx.RxChainConfig``; the optional stages raise until their
-    slice is ported)."""
+    ``quisk_tpu.rx.RxChainConfig`` but the TPU-only ``mxu_stft``; the
+    raw-IQ conditioning raises until its slice is ported).
+
+    ``agc_profile``: "delay" is the block-parallel lookahead AGC
+    (quisk.c:2162), "wcp" the conformance-exact WDSP 5-state AGC.
+    ``noise_blanker``: 0 off, 1/2/3 the level."""
 
     sample_rate: float
     channels: int
@@ -108,10 +121,9 @@ class RxChainConfig:
             if getattr(self, name):
                 raise NotImplementedError(
                     f"RxChainConfig.{name} is not ported yet: {where}")
-        if self.agc_profile != "delay":
-            raise NotImplementedError(
-                f"agc_profile={self.agc_profile!r} is not ported yet: "
-                f"slice 2 (featured RX)")
+        if self.agc_profile not in ("delay", "wcp"):
+            raise ValueError(f"agc_profile={self.agc_profile!r}: want "
+                             f"'delay' or 'wcp'")
 
 
 def fuse_cascade(stage_specs):
@@ -140,7 +152,13 @@ class RxChain:
     bp: OverlapSaveFIR                    # per-channel analytic bandpass
     frac: FracDecim | None
     demod: MixedDemod
-    agc: AGC | None
+    agc: AGC | WcpAGC | None
+    nb: NoiseBlanker | None               # on raw IQ, pre-tune
+    notch: AutoNotch | None               # on audio
+    nr: SpectralNR | None                 # on audio
+    anf: BlockLMS | None                  # on audio
+    squelch: SSBSquelch | None            # last: mutes audio
+    fm_sq: FMSquelch | None               # RF-measured squelch
     # per-stage runtime enables: [C, 1] f32 blend weights, 1 = stage
     # output, 0 = exact pass-through (keys only for stages that exist)
     ons: dict
@@ -182,13 +200,19 @@ class RxChain:
                                         atten_db=config.decim_atten_db)
             stage_specs.append((np.asarray(taps, np.float64), d))
 
+        nb = (NoiseBlanker.create(config.sample_rate, config.noise_blanker,
+                                  device=device)
+              if config.noise_blanker else None)
         nco = front = None
         stages = []
         if config.fused_frontend and stage_specs:
             comb, d_tot = fuse_cascade(stage_specs)
+            nb_detect = ({"avg_win": nb.avg_win, "kwidth": nb.kwidth}
+                         if nb is not None and nb.pool == 16 else None)
             front = FusedTuneDecimate.create(comb, tune_eff,
                                              config.sample_rate, B_in, d_tot,
-                                             C, device=device)
+                                             C, nb_detect=nb_detect,
+                                             device=device)
         else:
             nco = NCO.create(tune_eff, config.sample_rate, B_in, C,
                              device=device)
@@ -209,11 +233,29 @@ class RxChain:
         demod = MixedDemod.create(modes, plan.fs_out, C,
                                   config.fm_deviation_hz,
                                   ext_demod=config.ext_demod, device=device)
-        agc = AGC.create(plan.fs_out, device=device) if config.agc else None
-        ons = ({"agc": torch.ones((C, 1), dtype=torch.float32, device=device)}
-               if agc is not None else {})
+        agc = None
+        if config.agc:
+            kind = WcpAGC if config.agc_profile == "wcp" else AGC
+            agc = kind.create(plan.fs_out, device=device)
+        notch = (AutoNotch.create(B_audio, device=device)
+                 if config.auto_notch else None)
+        nr = SpectralNR.create(B_audio, device=device) if config.nr else None
+        anf = (BlockLMS.create(B_audio, notch=True, device=device)
+               if config.anf else None)
+        squelch = (SSBSquelch.create(plan.fs_out, B_audio,
+                                     config.squelch_threshold, device=device)
+                   if config.squelch else None)
+        fm_sq = (FMSquelch.create(plan.fs_out, B_audio, config.fm_squelch_db,
+                                  device=device)
+                 if config.fm_squelch else None)
+        ons = {name: torch.ones((C, 1), dtype=torch.float32, device=device)
+               for name, op in (("nb", nb), ("notch", notch), ("nr", nr),
+                                ("anf", anf), ("agc", agc),
+                                ("squelch", squelch), ("fm_sq", fm_sq))
+               if op is not None}
         return cls(nco=nco, front=front, stages=tuple(stages), bp=bp,
-                   frac=frac, demod=demod, agc=agc, ons=ons,
+                   frac=frac, demod=demod, agc=agc, nb=nb, notch=notch,
+                   nr=nr, anf=anf, squelch=squelch, fm_sq=fm_sq, ons=ons,
                    tune_base=torch.as_tensor(base.astype(np.float32),
                                              device=device),
                    channels=C, block_in=B_in, block_audio=B_audio,
@@ -299,29 +341,107 @@ class RxChain:
         """True if the stage exists and channel 0 has it enabled."""
         return name in self.ons and bool(self.ons[name][0, 0] != 0)
 
+    def set_nb_level(self, level: int) -> "RxChain":
+        """Noise-blanker threshold level 1/2/3 (the reference's NB cycle
+        button, quisk.c:716-727: limits 6.0/4.0/2.5) — data only."""
+        if self.nb is None:
+            raise KeyError("chain built without a noise blanker")
+        return dataclasses.replace(self, nb=dataclasses.replace(
+            self.nb, limit=NoiseBlanker.level_limit(level, self.device)))
+
+    def with_host_nb_detect(self) -> "RxChain":
+        """A verification route, not a receiver option: this chain with
+        the blanker's detection taken out of the front kernel.
+        ``NoiseBlanker.detect`` computes the coarse gain as torch ops and
+        the front kernel's gained mode applies it, at the cost of one more
+        pass over the full-rate input.  The JAX chain has no such route
+        (it reaches the gained mode only through
+        ``FusedTuneDecimate.__call__(gain16=)``) and ``create`` never
+        picks it; it exists so that in-kernel detection and the gained
+        mode can be held against each other inside a whole chain."""
+        if not self._nb_fused:
+            raise ValueError("the blanker's detection is not in the front "
+                             "kernel")
+        return dataclasses.replace(self, front=dataclasses.replace(
+            self.front, rc=None, with_gain=True))
+
+    @property
+    def _nb_fused(self) -> bool:
+        """True when blanker detection and gain run inside the front
+        kernel (``FusedTuneDecimate.call_nb``)."""
+        return (self.front is not None and self.nb is not None
+                and self.front.nb_detect is not None and self.nb.pool == 16)
+
+    @property
+    def _nb_gained(self) -> bool:
+        """True when the blanker's gain, detected by torch ops, is applied
+        inside the front kernel (``FusedTuneDecimate.__call__`` with
+        ``gain16``)."""
+        return (self.front is not None and self.nb is not None
+                and not self._nb_fused and self.front.with_gain
+                and self.nb.pool == 16)
+
     # ---------------------------------------------------------------- state
     def init_state(self):
         C = self.channels
+
+        def st(op):
+            return op.init_state(C) if op is not None else ()
+
+        # coarse blanker-gain history covering the front's raw FIR history
+        # (gain 1: nothing blanked before the stream)
+        nbg = (torch.ones((C, self.front.gain_hist_groups),
+                          dtype=torch.float32, device=self.device)
+               if self._nb_fused or self._nb_gained else ())
         return {
-            "nco": self.nco.init_state(C) if self.nco is not None else (),
-            "front": (self.front.init_state(C)
-                      if self.front is not None else ()),
+            "nbg": nbg,
+            "nco": st(self.nco),
+            "front": st(self.front),
             "stages": tuple(s.init_state(C) for s in self.stages),
             "bp": self.bp.init_state(C),
-            "frac": self.frac.init_state(C) if self.frac else (),
+            "frac": st(self.frac),
             "demod": self.demod.init_state(C),
-            "agc": self.agc.init_state(C) if self.agc is not None else (),
+            "agc": st(self.agc),
+            "nb": st(self.nb),
+            "notch": st(self.notch),
+            "nr": st(self.nr),
+            "anf": st(self.anf),
+            "squelch": st(self.squelch),
+            "fm_sq": st(self.fm_sq),
         }
 
     # ----------------------------------------------------------------- step
     def step(self, state, x: torch.Tensor):
         """One block: x [C, block_in] complex64 -> audio [C, block_audio]
-        (complex64 when a channel is DGT_IQ)."""
+        (complex64 when a channel is DGT_IQ).  Blanker (in the front
+        kernel, or by torch ops with the gain in the kernel, or standalone)
+        -> front -> stages -> channel filter -> frac -> RF level for the FM
+        squelch -> demod -> notch -> anf -> nr -> agc -> squelch -> fm_sq,
+        each optional stage blended by its ``ons`` weight."""
         st = dict(state)
-        if self.front is not None:
-            st["front"], y = self.front(st["front"], x)
+
+        def blend(name, wet, dry):
+            g = self.ons[name]
+            return wet * g + dry * (1.0 - g)
+
+        if self._nb_fused:
+            st["front"], y, gout = self.front.call_nb(
+                st["front"], x, st["nbg"], self.ons["nb"], self.nb.limit)
+            st["nbg"] = gout[:, -self.front.gain_hist_groups:]
+        elif self._nb_gained:
+            st["nb"], gc = self.nb.detect(st["nb"], x)
+            gc = 1.0 + self.ons["nb"] * (gc - 1.0)
+            st["front"], y = self.front(
+                st["front"], x, gain16=torch.cat([st["nbg"], gc], dim=-1))
+            st["nbg"] = gc[:, -self.front.gain_hist_groups:]
         else:
-            st["nco"], y = self.nco(st["nco"], x)
+            if self.nb is not None:
+                st["nb"], xb = self.nb(st["nb"], x)
+                x = blend("nb", xb, x)
+            if self.front is not None:
+                st["front"], y = self.front(st["front"], x)
+            else:
+                st["nco"], y = self.nco(st["nco"], x)
         new_stage_states = []
         for op, s in zip(self.stages, st["stages"]):
             s, y = op(s, y)
@@ -330,12 +450,19 @@ class RxChain:
         st["bp"], y = self.bp(st["bp"], y)
         if self.frac is not None:
             st["frac"], y = self.frac(st["frac"], y)
+        if self.fm_sq is not None:
+            rf_db = self.fm_sq.measure(y)      # pre-demod carrier power
         y_filtered = y
         st["demod"], audio = self.demod(st["demod"], y)
-        if self.agc is not None:
-            st["agc"], a2 = self.agc(st["agc"], audio)
-            g = self.ons["agc"]
-            audio = a2 * g + audio * (1.0 - g)
+        for name, op in (("notch", self.notch), ("anf", self.anf),
+                         ("nr", self.nr), ("agc", self.agc),
+                         ("squelch", self.squelch)):
+            if op is not None:
+                st[name], a2 = op(st[name], audio)
+                audio = blend(name, a2, audio)
+        if self.fm_sq is not None:
+            st["fm_sq"], a2 = self.fm_sq(st["fm_sq"], audio, rf_db)
+            audio = blend("fm_sq", a2, audio)
         if self.demod.iq_out:
             # DGT-IQ pass-through (quisk.c:2141-2153): those channels emit
             # the channel-filtered IQ; real audio rides Re of the others

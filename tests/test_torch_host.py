@@ -79,8 +79,10 @@ def test_channel_taps_equal(band):
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, quisk_tpu_torch, quisk_tpu_torch.convert, "
-            "quisk_tpu_torch.ops.fused_front\n"
+    code = ("import sys, pkgutil, importlib, quisk_tpu_torch\n"
+            "for m in pkgutil.walk_packages(quisk_tpu_torch.__path__, "
+            "'quisk_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'flax', 'quisk_tpu.')) "
             "or m == 'quisk_tpu']\n"
@@ -89,3 +91,36 @@ def test_import_loads_no_jax():
                        text=True, timeout=120,
                        cwd=Path(__file__).resolve().parents[1])
     assert r.returncode == 0, r.stderr
+
+
+def _port_sources():
+    root = Path(__file__).resolve().parents[1]
+    return sorted((root / "quisk_tpu_torch").rglob("*.py")) + [
+        root / "chip_smoke.py"]
+
+
+def test_port_sources_cover_the_featured_modules():
+    names = {p.name for p in _port_sources()}
+    assert {"noise.py", "nr.py", "squelch.py", "scanutil.py", "agc.py",
+            "iir.py", "fused_front.py", "wcpagc.py", "chain.py",
+            "convert.py", "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(
+                             Path(__file__).resolve().parents[1])))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    """Walk the syntax tree of every module of the port and of
+    chip_smoke.py: no import of jax, flax or quisk_tpu, at any depth."""
+    import ast
+    banned = ("jax", "flax", "quisk_tpu")
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        for m in mods:
+            assert m.split(".")[0] not in banned, (path.name, m)
