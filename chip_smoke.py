@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (quisk_tpu_torch).
 
-Drives the port's main paths on one CUDA card, each at 1024 channels and
-2048-sample audio blocks: the flagship receiver (960 kS/s in, channels
-cycling USB/LSB/AM/FM, the whole /20 cascade fused into the hand-written
+Drives the port's main paths on one CUDA card.  The per-channel receivers,
+each at 1024 channels and 2048-sample audio blocks: the flagship receiver
+(960 kS/s in, channels cycling USB/LSB/AM/FM, the whole /20 cascade fused into the hand-written
 front kernel, 1025-tap overlap-save channel filter, mixed demod, lookahead
 AGC), the featured receiver (the flagship plus noise blanker, auto-notch,
 LMS notch, spectral NR and both squelches, the blanker detected and applied
 inside the front kernel), the same through its verification route (the
 blanker detected by torch ops and applied by the kernel's gained mode),
 the NFM receiver (192 kS/s, all
-FM, FM squelch) and a short run of the WDSP-exact AGC.  Phases, each fatal
-on failure:
+FM, FM squelch), a short run of the WDSP-exact AGC and the featured
+receiver behind the raw-IQ conditioner.  And the 4096-channel PFB
+channelizer receiver (2x-oversampled polyphase filterbank, 33.5 M input
+samples a block, mode quarters USB/LSB/AM/FM, polyphase sums, stage-2 IDFT
+and demodulators in hand-written kernels) with the critically-sampled
+channelizer beside it.  Phases, each fatal on failure:
 
 1. environment: the card's name and power limit; build every kernel in
    quisk_tpu_torch/csrc/ (one nvcc each, started together);
@@ -61,11 +65,40 @@ on failure:
 8. the flagship with agc_profile="wcp" for 2 blocks against the CPU chain
    on channels 0-7, with its time per block (a per-sample loop);
 9. timing of the featured and NFM steps, the featured stages, and the
-   gained and NB-detect kernels with their plain versions and bounds.
+   gained and NB-detect kernels with their plain versions and bounds;
+10. the featured RxChain with front_cond=True, dc_remove_bw=300 (the
+    one-pole DC blocker), a trim set and a DC offset on the input, for 5
+    blocks: one NB-detect launch per block, the offset gone after the
+    blocker, channels 0-7 against the CPU chain from block 3 on;
+11. the PFB kernels against their plain versions at shapes off the main
+    path's: both polyphase sums over 3 streamed blocks (K 10 to 4096, tap
+    counts 3, 5 and 8, frame counts no tile divides, 2 streams; within
+    1e-5 of the peak); the fused stage-2 IDFT + demod over 3 streamed
+    calls from non-zero carries (K 256 and 512, frame counts 32 to 300 odd
+    ones among them, 2 streams, mixed / all-AM / all-FM masks: non-FM
+    within 1e-4 of the peak, FM on noise by RMS) and on planes that put a
+    carrier on every channel (FM sample by sample); launch counters rise
+    by the calls made; what the kernels refuse raises;
+12. the PFB receiver at full width, PFBRxPipeline.create(4096, 4096*8192,
+    quarters, channel_rate=96000, pallas_poly=True, pallas_demod=True),
+    for 3 blocks of seeded noise with a carrier 1 kHz off a USB channel,
+    an AM carrier with a 1 kHz tone and an FM carrier with a 1 kHz tone:
+    finite audio [1, n_out*K1, K2], one polyphase and one demod launch per
+    block, the 1 kHz tone in each of the three channels' columns and the
+    three channels on top of the power spectrum; the kernel route against
+    the torch-op route on the card block by block; each kernel against its
+    plain version on the path's own tensors; and the card against the
+    same pipeline on the CPU at 256 frames;
+13. the critically-sampled PFBChannelizer at K=4096, 8192 frames a block:
+    one launch per block, y equal (>= 100 dB) to the torch-op route, the
+    carriers in their channels, the kernel against its plain version;
+14. timing of the PFB receiver (both routes), its stages, and kernels #4-#6
+    with their plain versions and bounds.
 
 Prints, before the last line, the card's name and power limit and one
-JSON object of kernels (one entry per kernel and path shape: the plain
-mode has one for the flagship and one for the NFM path); the last line is
+JSON object of kernels (one entry per kernel and path shape: the front
+kernel's plain mode has one for the flagship and one for the NFM path);
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--out FILE`` also writes every number measured to FILE as JSON.
 
@@ -93,6 +126,8 @@ from quisk_tpu_torch.ops.fused_front import (fused_tune_decimate,
                                              fused_tune_decimate_nb,
                                              fused_tune_decimate_plain,
                                              fused_tune_decimate_reference)
+from quisk_tpu_torch.ops import pfb_kernels as pk
+from quisk_tpu_torch.ops.channelizer import PFBChannelizer, PFBRxPipeline
 from quisk_tpu_torch.rx import RxChain, RxChainConfig
 
 FS = 960000.0
@@ -124,6 +159,40 @@ FM_RMS_DB = 0.5            # FM audio, card vs CPU, by RMS
 WCP_MATCH_DB = 40.0
 NEAR_MAX = 4               # near-threshold blanker groups tolerated a block
 FS_NFM = 192000.0
+# PFB receiver (bench.py:404-414): 4096 channels, 2x oversampled, 8192
+# input frames a block, mode quarters USB/LSB/AM/FM, 96 kHz a channel
+PFB_K = 4096
+PFB_MULT = 8192
+PFB_RATE = 96000.0
+PFB_BLOCKS = 3
+PFB_CPU_MULT = 256         # depth of the CPU comparison
+PFB_USB, PFB_AM, PFB_FM = 300, 2500, 3500     # channels that get a signal
+# The polyphase kernels add P (or 2P) products per output in the plain
+# version's order, fused: within 1e-5 of the peak.  The demod kernel sums
+# its 128-point product term by term where the plain version calls four
+# matmuls, and runs its one-poles in chunks of 8 where the plain version
+# scans: non-FM positions within 1e-4 of the peak, spec within 1e-4
+# relative.  FM audio on noise wraps at +-pi, where a rounding difference
+# flips a sample by 2 pi: held by RMS within 0.1 dB; FM with a carrier is
+# held sample by sample.
+POLY_TOL = 1e-5
+DEMOD_TOL = 1e-4
+SPEC_RTOL = 1e-4
+FM_NOISE_RMS_DB = 0.1
+# The two routes of the receiver differ in the IDFT (cuFFT against the two
+# stage products) and in the commutator's rotation: the torch-op route
+# computes its angle 2 pi c (M-1)/K in float32, as the JAX package's route
+# does (quisk_tpu/ops/channelizer.py:264), thousands of radians at K=4096,
+# so each channel carries a constant phase error of up to half an ulp of
+# that angle (2.4e-4 rad below channel 2048); the kernel route folds the
+# rotation into constants made in float64.  A constant phase shows on SSB
+# audio (2 Re z) and on neither envelope nor discriminator.  So: SSB
+# channels together >= 70 dB, AM channels together >= 90 dB, non-FM audio
+# within 1e-4 of the peak sample by sample, the carrier-bearing FM channel
+# >= 80 dB, other FM by RMS.
+PFB_ROUTE_TOL = 1e-4
+PFB_ROUTE_DB = {"SSB": 70.0, "AM": 90.0, "FM carrier": 80.0}
+PFB_SPEC_RTOL = 1e-3
 
 
 def snr_db(ref, got) -> float:
@@ -170,7 +239,8 @@ def add_impulses(rng, x: np.ndarray, every: int = 7, n: int = 5,
 
 def reset_launches() -> None:
     for fn in (fused_tune_decimate, fused_tune_decimate_gained,
-               fused_tune_decimate_nb):
+               fused_tune_decimate_nb, pk.pfb_poly_oversampled,
+               pk.pfb_poly_critical, pk.pfb_demod_call):
         fn.launches = 0
 
 
@@ -178,6 +248,12 @@ def launches() -> dict:
     return {"plain": fused_tune_decimate.launches,
             "gained": fused_tune_decimate_gained.launches,
             "nb": fused_tune_decimate_nb.launches}
+
+
+def pfb_launches() -> dict:
+    return {"poly_os": pk.pfb_poly_oversampled.launches,
+            "poly_crit": pk.pfb_poly_critical.launches,
+            "demod": pk.pfb_demod_call.launches}
 
 
 def one_thread(fn):
@@ -1013,6 +1089,554 @@ def phase_timing_featured(report: dict, smi: str, featured, f_blocks, nfm,
     return {name: {k: t[k] for k in keys} for name, t in times.items()}
 
 
+# -------------------------------------------------------------- PFB kernels
+# (hop, K, P, frames out, streams): tiles that no frame count fills, K below
+# one thread block, tap counts off the register-ring path, two streams
+POLY_SHAPES = ((2, 256, 8, 32, 2), (2, 512, 8, 100, 1), (2, 4096, 8, 200, 1),
+               (2, 12, 3, 7, 2), (1, 256, 8, 24, 2), (1, 512, 8, 77, 1),
+               (1, 10, 5, 9, 2))
+# (K, frames, streams, masks): frame counts that leave a warp, a tile and
+# the last tile partly filled, odd ones among them
+DEMOD_SHAPES = ((256, 32, 2, "mixed"), (512, 101, 2, "mixed"),
+                (256, 300, 1, "all_am"), (512, 44, 2, "all_fm"),
+                (256, 131, 1, "mixed"))
+
+
+def quarters(K: int) -> list[int]:
+    """Mode quarters USB / LSB / AM / FM over K channels."""
+    return [MODES[(4 * i) // K] for i in range(K)]
+
+
+def rms_db(ref: torch.Tensor, got: torch.Tensor) -> float:
+    return float(10 * torch.log10(got.double().pow(2).mean()
+                                  / ref.double().pow(2).mean()))
+
+
+def check_poly_kernels(dev, rng) -> None:
+    """Kernels #4 and #5 against their plain versions over 3 streamed
+    blocks, the history fed on, at shapes off the main path's."""
+    for hop, K, P, n_out, S in POLY_SHAPES:
+        fn, plain = ((pk.pfb_poly_oversampled, pk.pfb_poly_oversampled_plain)
+                     if hop == 2 else
+                     (pk.pfb_poly_critical, pk.pfb_poly_critical_plain))
+        Mf = K // hop
+        h = torch.as_tensor(rng.standard_normal((P, K)).astype(np.float32),
+                            device=dev)
+        hist = torch.as_tensor(noise_blocks(rng, 1, (hop * P - 1) * Mf, S)[0],
+                               device=dev)
+        n0, worst = fn.launches, 0.0
+        for _ in range(3):
+            x = torch.as_tensor(noise_blocks(rng, 1, n_out * Mf, S)[0],
+                                device=dev)
+            v, vp = fn(hist, x, h), plain(hist, x, h)
+            torch.cuda.synchronize()
+            assert v.shape == vp.shape == (S, n_out, 2, K)
+            err = float((v - vp).abs().max()) / float(vp.abs().max())
+            assert err <= POLY_TOL, (hop, K, P, n_out, err)
+            worst = max(worst, err)
+            hist = torch.cat([hist, x], dim=-1)[:, x.shape[-1]:].contiguous()
+        assert fn.launches - n0 == 3
+        print(f"  {fn.__name__} K={K} P={P} n_out={n_out} S={S}: max|kernel-"
+              f"plain| {worst:.2e} of the peak over 3 blocks (tolerance "
+              f"{POLY_TOL:.0e})", flush=True)
+
+
+def demod_args(pipe) -> tuple[tuple, dict]:
+    """The constant arguments of the fused demod kernel for ``pipe``."""
+    _, (twr, twi), (w2r, w2i), am_m, fm_m = pipe.kd
+    return ((twr, twi, w2r, w2i, am_m, fm_m),
+            dict(g_ssb=pipe.g_ssb, g_am=pipe.g_am, g_fm=pipe.g_fm,
+                 a_dc=pipe.a_dc, a_de=pipe.a_de, b_de=pipe.b_de))
+
+
+def compare_demod(pipe, got, want, label: str, fm_strict: bool = False
+                  ) -> float:
+    """Hold (audio, spec, st') of the fused demod kernel to the plain
+    version's.  Non-FM positions sample by sample within DEMOD_TOL of the
+    peak; FM positions by RMS, or sample by sample with ``fm_strict`` (a
+    carrier on every channel); spec within SPEC_RTOL; the carries zr, zi,
+    env, y_dc (and y_de with ``fm_strict``) within DEMOD_TOL of their
+    peak.  Returns the non-FM (with ``fm_strict`` the overall) max error."""
+    (a, sp, st), (ap, spp, stp) = got, want
+    S, K1, K = a.shape[0], pipe.K1, pipe.K1 * pipe.K2
+    assert a.shape == ap.shape and sp.shape == spp.shape == (S, K1, pipe.K2)
+    assert st.shape == stp.shape == (S, 5 * K1, pipe.K2)
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(st).all())
+    fm = pipe.kd[4].reshape(-1) > 0
+    a, ap = a.reshape(S, -1, K), ap.reshape(S, -1, K)
+    peak = float(ap.abs().max())
+    strict = torch.ones_like(fm) if fm_strict else ~fm
+    err, note = 0.0, ""
+    if bool(strict.any()):
+        err = float((a[..., strict] - ap[..., strict]).abs().max())
+        assert err <= DEMOD_TOL * peak, (label, err, peak)
+    if bool(fm.any()) and not fm_strict:
+        db = rms_db(ap[..., fm], a[..., fm])
+        share = float(((a[..., fm] - ap[..., fm]).abs()
+                       <= DEMOD_TOL * peak).float().mean())
+        assert abs(db) < FM_NOISE_RMS_DB, (label, db)
+        note = (f", FM on noise {db:+.4f} dB by RMS, {100 * share:.2f}% of "
+                f"its samples within the tolerance")
+    assert torch.allclose(sp, spp, rtol=SPEC_RTOL, atol=0.0), label
+    rows = (0, 1, 2, 3, 4) if fm_strict else (0, 1, 3, 4)
+    s5, s5p = st.reshape(S, 5, -1), stp.reshape(S, 5, -1)
+    st_err = max(float((s5[:, r] - s5p[:, r]).abs().max()) for r in rows)
+    assert st_err <= DEMOD_TOL * max(1.0, float(s5p.abs().max())), (label,
+                                                                     st_err)
+    print(f"  {label}: max|kernel-plain| {err:.2e} (peak {peak:.3f}, "
+          f"tolerance {DEMOD_TOL:.0e} of it), carries {st_err:.2e}{note}",
+          flush=True)
+    return err
+
+
+def check_demod_kernel(dev, rng) -> None:
+    """Kernel #6 against its plain version over 3 streamed calls on noise
+    planes, the state fed on from non-zero entering carries; then on planes
+    that put a frequency-modulated carrier on every channel."""
+    n0 = pk.pfb_demod_call.launches
+    calls = 0
+    for K, n_out, S, masks in DEMOD_SHAPES:
+        mode_vec = {"mixed": quarters(K), "all_am": [int(Mode.AM)] * K,
+                    "all_fm": [int(Mode.FM)] * K}[masks]
+        pipe = PFBRxPipeline.create(K, 2 * K, mode_vec, PFB_RATE,
+                                    pallas_demod=True, device=dev)
+        consts, kw = demod_args(pipe)
+        K1 = pipe.K1
+        st = (0.1 * rng.standard_normal((S, 5, K1, 128))).astype(np.float32)
+        st[:, 3] = np.abs(st[:, 3])                      # an envelope
+        st = torch.as_tensor(st.reshape(S, 5 * K1, 128), device=dev)
+        for blk in range(3):
+            bb = torch.as_tensor((rng.standard_normal(
+                (S, n_out * 2 * K1, 128)) / np.sqrt(K)).astype(np.float32),
+                device=dev)
+            got = pk.pfb_demod_call(bb, st, *consts, **kw)
+            want = pk.pfb_demod_plain(bb, st, *consts, **kw)
+            torch.cuda.synchronize()
+            compare_demod(pipe, got, want, f"pfb_demod K={K} n_out={n_out} "
+                          f"S={S} {masks} block {blk}")
+            st = got[2]
+            calls += 1
+    # a carrier on every channel: z[t, c] = exp(j phi_c[t]) plus a little
+    # noise, carried back through the stage-2 basis, sign and twiddle
+    K, n_out = 256, 300
+    pipe = PFBRxPipeline.create(K, 2 * K, int(Mode.FM), PFB_RATE,
+                                pallas_demod=True, device=dev)
+    consts, kw = demod_args(pipe)
+    K1 = pipe.K1
+    t = np.arange(n_out)[:, None]
+    dev_c = rng.uniform(0.05, 0.6, K)[None, :]
+    z = np.exp(1j * (dev_c * t + 0.8 * np.sin(0.3 * t + dev_c)))
+    z = z + 0.01 * noise_blocks(rng, 1, K, n_out)[0]
+    W2 = (consts[2].cpu().numpy().astype(np.complex128)
+          + 1j * consts[3].cpu().numpy())
+    tw = (consts[0].cpu().numpy().astype(np.complex128)
+          + 1j * consts[1].cpu().numpy())
+    c = z.reshape(n_out, K1, 128) @ np.linalg.inv(W2)
+    sgn = 1 - 2 * ((t % 2)[:, :, None] * (np.arange(K1) % 2)[None, :, None])
+    b = c * sgn / tw[None]
+    bb = torch.as_tensor(np.stack([b.real, b.imag], axis=1).reshape(
+        1, n_out * 2 * K1, 128).astype(np.float32), device=dev)
+    st = torch.zeros((1, 5 * K1, 128), device=dev)
+    got = pk.pfb_demod_call(bb, st, *consts, **kw)
+    want = pk.pfb_demod_plain(bb, st, *consts, **kw)
+    torch.cuda.synchronize()
+    # the first frame has no carrier before it: compare from frame 1 on
+    cut = lambda r: (r[0][:, K1:], r[1], r[2])           # noqa: E731
+    compare_demod(pipe, cut(got), cut(want), f"pfb_demod K={K} n_out={n_out}"
+                  f" all_fm, a carrier on every channel", fm_strict=True)
+    assert float(got[0].pow(2).mean().sqrt()) > 0.05
+    assert pk.pfb_demod_call.launches - n0 == calls + 1
+
+
+def phase_pfb_kernels(report: dict, rng) -> None:
+    dev = torch.device(DEVICE)
+    n0 = pfb_launches()
+    check_poly_kernels(dev, rng)
+    check_demod_kernel(dev, rng)
+    rose = {k: v - n0[k] for k, v in pfb_launches().items()}
+    n_os = 3 * sum(1 for s in POLY_SHAPES if s[0] == 2)
+    n_cr = 3 * sum(1 for s in POLY_SHAPES if s[0] == 1)
+    assert rose == {"poly_os": n_os, "poly_crit": n_cr,
+                    "demod": 3 * len(DEMOD_SHAPES) + 1}, rose
+    # what the kernels refuse must raise, not launch
+    for bad in (lambda: pk.pfb_poly_oversampled(
+                    torch.zeros((1, 14 * 64), dtype=torch.complex64,
+                                device=dev),
+                    torch.zeros((1, 128), dtype=torch.complex64, device=dev),
+                    torch.zeros((8, 128), device=dev)),
+                lambda: pk.pfb_demod_call(
+                    torch.zeros((1, 64, 64), device=dev),
+                    *[torch.zeros((1, 1), device=dev)] * 7, g_ssb=2.0,
+                    g_am=2.0, g_fm=1.0, a_dc=0.9, a_de=0.9, b_de=0.1)):
+        try:
+            bad()
+        except ValueError as e:
+            print(f"  refused: {e}", flush=True)
+        else:
+            raise AssertionError("a bad call launched")
+    report["pfb_kernel_check"] = {"launches": rose}
+
+
+# ------------------------------------------------------------- PFB receiver
+def pfb_signal(dev, gen, K: int, B: int, blk: int) -> torch.Tensor:
+    """Block ``blk`` of the receiver's wideband input [1, B], made on the
+    card from a seeded generator: complex noise (unit variance a rail); a
+    carrier 1 kHz above the centre of USB channel PFB_USB; a carrier with
+    a 1 kHz tone at 50% depth on AM channel PFB_AM; a carrier frequency-
+    modulated by a 1 kHz tone (3 kHz deviation) on FM channel PFB_FM.
+    Channel c is centred on c/K of the input rate, kept exact in integers."""
+    x = torch.view_as_complex(torch.randn((1, B, 2), generator=gen,
+                                          device=dev))
+    n = torch.arange(blk * B, (blk + 1) * B, device=dev)
+    tone = (2 * np.pi * BEAT_HZ / (K * PFB_RATE / 2)) * n.to(torch.float64)
+
+    def centre(c):
+        return (2 * np.pi / K) * ((c * n) % K).to(torch.float64)
+
+    unit = torch.ones_like(tone)
+    sig = (torch.polar(unit, centre(PFB_USB) + tone)
+           + torch.polar(1.0 + 0.5 * torch.cos(tone), centre(PFB_AM))
+           + torch.polar(unit, centre(PFB_FM) + 3.0 * torch.sin(tone)))
+    return x + sig.to(torch.complex64)[None]
+
+
+def tone_peak(audio: np.ndarray, fs: float) -> tuple[float, float]:
+    """(frequency of the largest bin, its dB over the median bin)."""
+    a = audio.astype(np.float64)
+    spec = np.abs(np.fft.rfft((a - a.mean()) * np.hanning(a.size)))
+    freqs = np.fft.rfftfreq(a.size, 1.0 / fs)
+    return (float(freqs[np.argmax(spec)]),
+            float(20 * np.log10(spec.max() / np.median(spec))))
+
+
+def compare_routes(a, sp, a_ref, sp_ref, modes, carrier: int, label: str,
+                   fm_too: bool = True) -> dict:
+    """Audio [.., K] and spec of one route against another's, both in the
+    order of ``modes`` (the mode of each column).  SSB and AM columns
+    together by SNR (PFB_ROUTE_DB) and sample by sample within
+    PFB_ROUTE_TOL of the peak, the FM column ``carrier`` by SNR, other FM
+    columns by RMS."""
+    fm = modes == int(Mode.FM)
+    am = modes == int(Mode.AM)
+    peak = float(a_ref.abs().max())
+    err = float((a[..., ~fm] - a_ref[..., ~fm]).abs().max())
+    assert err <= PFB_ROUTE_TOL * peak, (label, err, peak)
+    out = {"non_fm_max_abs": err, "peak": peak}
+    for name, cols in (("SSB", ~fm & ~am), ("AM", am)):
+        out[name] = snr_db(a_ref[..., cols], a[..., cols])
+        assert out[name] >= PFB_ROUTE_DB[name], (label, name, out[name])
+    note = ""
+    if fm_too:
+        rest = fm.clone()
+        rest[carrier] = False
+        out["FM carrier"] = snr_db(a_ref[..., carrier], a[..., carrier])
+        out["fm_noise_rms_db"] = rms_db(a_ref[..., rest], a[..., rest])
+        assert out["FM carrier"] >= PFB_ROUTE_DB["FM carrier"], (label, out)
+        assert abs(out["fm_noise_rms_db"]) < FM_NOISE_RMS_DB, (label, out)
+        note = (f", FM carrier channel {out['FM carrier']:.1f} dB, other FM "
+                f"{out['fm_noise_rms_db']:+.4f} dB by RMS")
+    assert torch.allclose(sp, sp_ref, rtol=PFB_SPEC_RTOL, atol=0.0), label
+    print(f"  {label}: non-FM max abs {err:.2e} of a peak of {peak:.3f}, SSB "
+          f"{out['SSB']:.1f} dB, AM {out['AM']:.1f} dB{note}, spec within "
+          f"rtol {PFB_SPEC_RTOL:.0e}", flush=True)
+    return out
+
+
+def pfb_pipeline(dev, mult: int, kernels: bool) -> PFBRxPipeline:
+    return PFBRxPipeline.create(PFB_K, PFB_K * mult, quarters(PFB_K),
+                                channel_rate=PFB_RATE, pallas_poly=kernels,
+                                pallas_demod=kernels, device=dev)
+
+
+def phase_pfb_receiver(report: dict) -> dict:
+    dev = torch.device(DEVICE)
+    K, B = PFB_K, PFB_K * PFB_MULT
+    n_out = 2 * PFB_MULT
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    pipe = pfb_pipeline(dev, PFB_MULT, True)
+    assert pipe.pallas_demod and pipe.pfb.pallas_poly
+    assert (pipe.K1, pipe.K2) == (K // 128, 128)
+    pos = torch.as_tensor(pipe.chan_pos, device=dev)
+    xs = [pfb_signal(dev, gen, K, B, blk) for blk in range(PFB_BLOCKS)]
+
+    reset_launches()
+    st = pipe.init_state(1)
+    states, outs = [st], []
+    for x in xs:
+        st, out = pipe(st, x)
+        states.append(st)
+        outs.append(out)
+    torch.cuda.synchronize()
+    n = pfb_launches()
+    print(f"  PFB receiver: {PFB_BLOCKS} blocks of {B} samples, launches {n}",
+          flush=True)
+    assert n == {"poly_os": PFB_BLOCKS, "poly_crit": 0,
+                 "demod": PFB_BLOCKS}, n
+    assert launches() == {"plain": 0, "gained": 0, "nb": 0}
+    for a, sp in outs:
+        assert a.shape == (1, n_out * pipe.K1, pipe.K2)
+        assert a.dtype == torch.float32 and sp.shape == (1, K)
+        assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(sp).all())
+
+    # the three signals come out of their channels' columns
+    beats = {}
+    for name, c in (("USB", PFB_USB), ("AM", PFB_AM), ("FM", PFB_FM)):
+        col = torch.cat([a.view(n_out, K)[:, int(pos[c])]
+                         for a, _ in outs[1:]]).cpu().numpy()
+        f_peak, contrast = tone_peak(col, PFB_RATE)
+        print(f"  channel {c} ({name}): tone at {f_peak:.1f} Hz, "
+              f"{contrast:.1f} dB over the median bin", flush=True)
+        # within 10 Hz, or one bin of a short rehearsal
+        assert abs(f_peak - BEAT_HZ) <= max(10.0, PFB_RATE / col.size), (
+            name, f_peak)
+        assert contrast > 20.0, (name, contrast)
+        beats[name] = (f_peak, contrast)
+    spec = outs[-1][1][0]
+    top = sorted(int(i) for i in torch.topk(spec, 3).indices)
+    ratio = float(10 * torch.log10(spec[PFB_USB] / spec.median()))
+    print(f"  spec: the 3 strongest channels {top}, channel {PFB_USB} "
+          f"{ratio:.1f} dB over the median channel", flush=True)
+    assert top == [PFB_USB, PFB_AM, PFB_FM] and ratio > 20.0
+
+    # the torch-op route on the card, block by block
+    ref = pfb_pipeline(dev, PFB_MULT, False)
+    modes = torch.as_tensor(quarters(K), device=dev)
+    st_r = ref.init_state(1)
+    routes = []
+    for i, x in enumerate(xs):
+        st_r, (ar, spr) = ref(st_r, x)
+        assert ar.shape == (1, n_out, K)
+        ak = outs[i][0].view(1, n_out, K)[:, :, pos]
+        routes.append(compare_routes(
+            ak, outs[i][1], ar, spr, modes, PFB_FM,
+            f"kernel route vs torch-op route, block {i}", fm_too=i >= 1))
+        del ar, ak
+    assert pfb_launches() == n           # the torch-op route launched none
+
+    # each kernel at the path's shape against its plain version, on the
+    # path's own tensors (block 2, entering state non-zero)
+    hist, dm = states[2]
+    x = xs[2]
+    v = pk.pfb_poly_oversampled(hist, x, pipe.pfb.h_poly)
+    vp = pk.pfb_poly_oversampled_plain(hist, x, pipe.pfb.h_poly)
+    torch.cuda.synchronize()
+    poly_err = float((v - vp).abs().max())
+    poly_peak = float(vp.abs().max())
+    print(f"  pfb_poly_oversampled at K={K}, n_out={n_out}: max|kernel-plain|"
+          f" {poly_err:.2e} (peak {poly_peak:.3f}, tolerance {POLY_TOL:.0e} "
+          f"of it)", flush=True)
+    assert poly_err <= POLY_TOL * poly_peak
+    del vp
+    bb = pipe.stage1(v)
+    consts, kw = demod_args(pipe)
+    got = pk.pfb_demod_call(bb, dm, *consts, **kw)
+    want = pk.pfb_demod_plain(bb, dm, *consts, **kw)
+    torch.cuda.synchronize()
+    demod_err = compare_demod(pipe, got, want,
+                              f"pfb_demod at K1={pipe.K1}, "
+                              f"n_out={n_out}")
+    del got, want
+
+    # the same pipeline on the CPU (one thread), PFB_CPU_MULT frames deep
+    small, cpu = (pfb_pipeline(d, PFB_CPU_MULT, True) for d in (dev, "cpu"))
+    modes_pos = modes[torch.as_tensor(small.chan_perm, device=dev)]
+    car = int(small.chan_pos[PFB_FM])
+    st_s, st_c = small.init_state(1), cpu.init_state(1)
+    cpu_match = []
+    for blk in range(2):
+        xb = pfb_signal(dev, gen, K, K * PFB_CPU_MULT, blk)
+        st_s, (a_s, sp_s) = small(st_s, xb)
+        xc = xb.cpu()
+        st_c, (a_c, sp_c) = one_thread(lambda: cpu(st_c, xc))
+        cpu_match.append(compare_routes(
+            a_s.view(1, -1, K), sp_s, a_c.view(1, -1, K).to(dev),
+            sp_c.to(dev), modes_pos, car,
+            f"card vs CPU pipeline at {PFB_CPU_MULT} frames, block {blk}",
+            fm_too=blk >= 1))
+    report["pfb_receiver"] = {
+        "blocks": PFB_BLOCKS, "launches": n, "beats": beats,
+        "spec_top": top, "routes": routes, "cpu_match": cpu_match,
+        "poly_max_abs_err": poly_err, "demod_max_abs_err": demod_err}
+    return {"pipe": pipe, "ref": ref, "xs": xs, "state": states[2], "v": v,
+            "bb": bb, "launches": n, "poly_err": poly_err,
+            "demod_err": demod_err}
+
+
+def phase_pfb_critical(report: dict, xs) -> dict:
+    """The critically-sampled channelizer at K=4096, 8192 frames a block, on
+    the receiver's input (its USB carrier lies 1 kHz off channel 300)."""
+    dev = torch.device(DEVICE)
+    K, B = PFB_K, PFB_K * PFB_MULT
+    op = PFBChannelizer.create(K, B, pallas_poly=True, device=dev)
+    ref = PFBChannelizer.create(K, B, pallas_poly=False, device=dev)
+    reset_launches()
+    st, st_r = op.init_state(1), ref.init_state(1)
+    snrs = []
+    for x in xs[:2]:
+        hist = st
+        st, y = op(st, x)
+        st_r, y_r = ref(st_r, x)
+        assert y.shape == (1, K, PFB_MULT) and y.dtype == torch.complex64
+        assert bool(torch.isfinite(torch.view_as_real(y)).all())
+        assert torch.equal(st, st_r)
+        snrs.append(snr_db(y_r, y))
+        assert snrs[-1] >= KERNEL_SNR_DB, snrs
+    n = pfb_launches()
+    assert n == {"poly_os": 0, "poly_crit": 2, "demod": 0}, n
+    power = (y[0].abs() ** 2).mean(-1)
+    top = sorted(int(i) for i in torch.topk(power, 3).indices)
+    ratio = float(10 * torch.log10(power[PFB_USB] / power.median()))
+    print(f"  PFBChannelizer: 2 blocks, launches {n}, kernel route vs "
+          f"torch-op route {min(snrs):.1f} dB; the 3 strongest channels "
+          f"{top}, channel {PFB_USB} {ratio:.1f} dB over the median",
+          flush=True)
+    assert top == [PFB_USB, PFB_AM, PFB_FM] and ratio > 20.0
+    del y, y_r
+    v = pk.pfb_poly_critical(hist, x, op.h_poly)
+    vp = pk.pfb_poly_critical_plain(hist, x, op.h_poly)
+    torch.cuda.synchronize()
+    err, peak = float((v - vp).abs().max()), float(vp.abs().max())
+    print(f"  pfb_poly_critical at K={K}, n_out={PFB_MULT}: max|kernel-plain|"
+          f" {err:.2e} (peak {peak:.3f})", flush=True)
+    assert err <= POLY_TOL * peak
+    report["pfb_critical"] = {"launches": n, "route_snr_db": snrs,
+                              "max_abs_err": err}
+    return {"op": op, "hist": hist, "x": x, "launches": n["poly_crit"],
+            "err": err}
+
+
+def phase_front_cond(report: dict, blocks) -> None:
+    """The featured chain with the raw-IQ conditioner ahead of it (hp mode,
+    a trim set, a DC offset on the input) for 5 blocks against the CPU
+    chain on channels 0-7."""
+    dev = torch.device(DEVICE)
+    nblk = 5
+    cfg = dataclasses.replace(featured_config(), front_cond=True,
+                              dc_remove_bw=300)
+    blocks = [b + np.complex64(0.3 + 0.2j) for b in blocks[:nblk]]
+    chain = RxChain.create(cfg, tune_hz=TUNE, mode=MODE, device=dev)
+    cpu = RxChain.create(dataclasses.replace(cfg, channels=8),
+                         tune_hz=TUNE[:8], mode=MODE[:8], device="cpu")
+    assert chain.cond.dc_mode == "hp" and chain._nb_fused
+    chain, cpu = (dataclasses.replace(c, cond=c.cond.with_balance(0.02, 1.5))
+                  for c in (chain, cpu))
+    reset_launches()
+    st, audio = run_chain(chain, blocks)
+    torch.cuda.synchronize()
+    n = launches()
+    assert n == {"plain": 0, "gained": 0, "nb": nblk}, n
+    assert all(bool(torch.isfinite(a).all()) for a in audio)
+    # the blocker has taken the offset out of what the front end sees
+    _, y = chain.cond(chain.init_state()["cond"],
+                      torch.as_tensor(blocks[0], device=dev))
+    dc = float(y[:, y.shape[-1] // 2:].mean(-1).abs().max())
+    assert dc < 0.08, dc
+    _, cpu_audio = one_thread(lambda: run_chain(cpu, blocks, rows=8))
+    match = compare_with_cpu(audio, cpu_audio, MODE, FEATURED_FROM_BLOCK,
+                             FEATURED_MATCH_DB, "featured + conditioner")
+    assert match["compared"] >= 3 * (nblk - FEATURED_FROM_BLOCK), match
+    print(f"  conditioner: {nblk} blocks, front launches {n}, residual DC "
+          f"after the blocker {dc:.4f} of an offset of 0.36", flush=True)
+    report["front_cond"] = {"blocks": nblk, "launches": n,
+                            "cpu_match": match, "residual_dc": dc}
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "mbytes": nbytes / 1e6,
+            "gflop": flops / 1e9}
+
+
+def phase_timing_pfb(report: dict, smi: str, rx: dict, crit: dict) -> dict:
+    pipe, ref, xs = rx["pipe"], rx["ref"], rx["xs"]
+    K, P = PFB_K, pipe.pfb.P
+    B, n_out, K1 = K * PFB_MULT, 2 * PFB_MULT, pipe.K1
+
+    def stepper(p):
+        state = {"st": p.init_state(1), "i": 0}
+
+        def step():
+            state["st"], _ = p(state["st"], xs[state["i"] % len(xs)])
+            state["i"] += 1
+        return step
+
+    k_ms = cuda_ms(stepper(pipe), iters=6, warmup=2)
+    r_ms = cuda_ms(stepper(ref), iters=3, warmup=1)
+    hist, dm = rx["state"]
+    x, v, bb = xs[2], rx["v"], rx["bb"]
+    consts, kw = demod_args(pipe)
+    h = pipe.pfb.h_poly
+    stages = {
+        "poly (kernel #4)": cuda_ms(
+            lambda: pk.pfb_poly_oversampled(hist, x, h), 10),
+        "stage-1 product": cuda_ms(lambda: pipe.stage1(v), 10),
+        "stage 2 + demod (kernel #6)": cuda_ms(
+            lambda: pk.pfb_demod_call(bb, dm, *consts, **kw), 10),
+    }
+    hist_n = hist.shape[-1]
+    times = {
+        "poly_os": {
+            "ms": stages["poly (kernel #4)"],
+            "plain_ms": cuda_ms(
+                lambda: pk.pfb_poly_oversampled_plain(hist, x, h), 3, 1),
+            **bound((hist_n + B) * 8 + P * K * 4 + n_out * 2 * K * 4,
+                    n_out * K * 2 * P * 2)},
+        "poly_crit": {
+            "ms": cuda_ms(lambda: pk.pfb_poly_critical(
+                crit["hist"], crit["x"], crit["op"].h_poly), 10),
+            "plain_ms": cuda_ms(lambda: pk.pfb_poly_critical_plain(
+                crit["hist"], crit["x"], crit["op"].h_poly), 3, 1),
+            **bound((crit["hist"].shape[-1] + B) * 8 + P * K * 4
+                    + PFB_MULT * 2 * K * 4, PFB_MULT * K * 2 * P * 2)},
+    }
+    # kernel #6: bytes as they are; operations as the function needs them
+    # (a 128-point FFT per row, 5 N log2 N, plus ~50 per sample for twiddle,
+    # demodulators and power), not as this kernel spends them (the direct
+    # product, 8*128 per sample, printed beside it)
+    rows = n_out * K1
+    nbytes = (bb.numel() + 2 * dm.numel() + 4 * K + 2 * 128 * 128
+              + rows * 128 + K) * 4
+    direct = rows * 128 * (8 * 128 + 50)
+    times["demod"] = {
+        "ms": stages["stage 2 + demod (kernel #6)"],
+        "plain_ms": cuda_ms(
+            lambda: pk.pfb_demod_plain(bb, dm, *consts, **kw), 3, 1),
+        **bound(nbytes, rows * (5 * 128 * 7 + 128 * 50)),
+        "direct_product_ms": direct / PEAK_FP32_FLOPS * 1e3}
+    print(f"timing of the PFB receiver [{smi}]:", flush=True)
+    for label, ms in (("kernel route", k_ms), ("torch-op route", r_ms)):
+        print(f"  {label}: {ms:.4f} ms/block (device events), "
+              f"{B / (ms * 1e-3) / 1e6:.1f} Msps in, real-time factor "
+              f"{n_out / PFB_RATE * 1e3 / ms:.2f}x of "
+              f"{n_out / PFB_RATE * 1e3:.2f} ms", flush=True)
+    print("  kernel-route stages (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()), flush=True)
+    for name, t in times.items():
+        extra = (f"; the direct product it runs is "
+                 f"{t['direct_product_ms']:.4f} ms at the fp32 peak"
+                 if "direct_product_ms" in t else "")
+        print(f"  {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"library none, bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']} ({t['mbytes']:.1f} MB = {t['bytes_ms']:.4f} "
+              f"ms, {t['gflop']:.2f} GFLOP = {t['ops_ms']:.4f} ms){extra}",
+              flush=True)
+    report["timing_pfb"] = {
+        "kernel_route_ms": k_ms, "torch_route_ms": r_ms,
+        "msps": B / (k_ms * 1e-3) / 1e6, "budget_ms": n_out / PFB_RATE * 1e3,
+        "stages_ms": stages, "kernels": times}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    # library_ms: no one PyTorch call computes any of the three (the
+    # nearest, a grouped conv1d, wants transposed planes and gives neither
+    # the lane reversal nor the stacked layout; nothing fuses an IDFT
+    # stage with three demodulators)
+    return {name: {**{k: t[k] for k in keys}, "library_ms": None}
+            for name, t in times.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -1033,6 +1657,7 @@ def main(argv=None) -> int:
     phase_wcp(report, blocks)
     gtimes = phase_timing_featured(report, smi, featured, f_blocks, nfm,
                                    n_blocks, gk)
+    phase_front_cond(report, f_blocks)
     # one entry per kernel and path shape: the plain mode runs at two
     source = "quisk_tpu_torch/csrc/fused_tune_decimate.cu"
     plain = {"name": "fused_tune_decimate", "route": "cuda",
@@ -1048,10 +1673,33 @@ def main(argv=None) -> int:
          "path": "featured, host-detect verification route",
          "launches": n_gained, "max_abs_err": gk["gained_err"],
          **gtimes["gained"]},
-        {"name": "fused_tune_decimate_nb", "route": "cuda", "source": source,
+        {"name": "fused_tune_decimate_nb", "route": "cuda",
+         "source": source,
          "replaces": "quisk_tpu/ops/pallas_kernels.py:77",
-         "path": "featured", "launches": n_nb, "max_abs_err": gk["nb_err"],
-         **gtimes["nb"]},
+         "path": "featured", "launches": n_nb,
+         "max_abs_err": gk["nb_err"], **gtimes["nb"]},
+    ]
+    del chain, featured, nfm, blocks, f_blocks, n_blocks, gk, kern
+    torch.cuda.empty_cache()
+    phase_pfb_kernels(report, rng)
+    rx = phase_pfb_receiver(report)
+    crit = phase_pfb_critical(report, rx["xs"])
+    ptimes = phase_timing_pfb(report, smi, rx, crit)
+    poly_src = "quisk_tpu_torch/csrc/pfb_poly.cu"
+    kernels += [
+        {"name": "pfb_poly_oversampled", "route": "cuda", "source": poly_src,
+         "replaces": "quisk_tpu/ops/pallas_kernels.py:638",
+         "path": "PFB receiver", "launches": rx["launches"]["poly_os"],
+         "max_abs_err": rx["poly_err"], **ptimes["poly_os"]},
+        {"name": "pfb_poly_critical", "route": "cuda", "source": poly_src,
+         "replaces": "quisk_tpu/ops/pallas_kernels.py:724",
+         "path": "PFBChannelizer", "launches": crit["launches"],
+         "max_abs_err": crit["err"], **ptimes["poly_crit"]},
+        {"name": "pfb_demod_call", "route": "cuda",
+         "source": "quisk_tpu_torch/csrc/pfb_demod.cu",
+         "replaces": "quisk_tpu/ops/pallas_kernels.py:844",
+         "path": "PFB receiver", "launches": rx["launches"]["demod"],
+         "max_abs_err": rx["demod_err"], **ptimes["demod"]},
     ]
     report["kernels"] = kernels
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""quisk_tpu_torch — the receive chain of quisk_tpu on PyTorch and CUDA.
+"""quisk_tpu_torch — the receive chain and the PFB channelizer receiver of
+quisk_tpu on PyTorch and CUDA.
 
 A second package beside ``quisk_tpu`` (the JAX reference, which it never
 imports).  Same op contract: an op holds its parameters as tensors on one
 device, ``op.init_state(channels)`` gives the carried state and
-``op(state, x) -> (state, y)`` processes one ``[channels, block]`` block.
+``op(state, x) -> (state, y)`` processes one ``[channels, block]`` block
+(the channelizers of ``ops/channelizer.py`` take ``[streams, block]``).
 Hot kernels are hand-written CUDA for Hopper (``csrc/``, built at first
 use by ``_kernels``); everything else is PyTorch.
 

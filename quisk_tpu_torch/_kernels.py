@@ -6,7 +6,9 @@ Libraries go to ``quisk_tpu_torch/_build/`` under a name that carries a
 hash of the source and flags, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing is built at import: a kernel is built
 at its first launch, or all at once by :func:`build`.  A failed build
-raises; nothing falls back to another path.
+raises; nothing falls back to another path.  :func:`check_tensors` and
+:func:`call` are what every wrapper does around its launcher: validate
+what the pointers point at, then call on the tensor's device and stream.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
@@ -91,3 +95,27 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def check_tensors(ref: torch.Tensor, want: dict) -> None:
+    """Raise unless every ``name: (tensor, dtype, shape)`` of ``want`` lies
+    on ``ref``'s device with that dtype and shape, contiguous."""
+    for name, (t, dt, shape) in want.items():
+        if t.device != ref.device:
+            raise ValueError(f"{name} on {t.device}, expected {ref.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def call(ref: torch.Tensor, fn, *args) -> int:
+    """Call the C launcher ``fn(*args, stream)`` on ``ref``'s device and
+    current stream; returns the launcher's error code."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ref.device}")
+    with torch.cuda.device(ref.device):
+        return fn(*args, torch.cuda.current_stream(ref.device).cuda_stream)

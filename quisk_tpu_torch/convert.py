@@ -8,8 +8,14 @@ neither JAX nor the JAX package.
 
 Phases: uint32 arrays on the numpy side, int64 tensors holding the same
 values in the port.  Every int64 tensor in the port's chain state is such
-a phase; the counters of the squelches and of the hang AGCs are int32 on
-both sides and pass unchanged.
+a phase; the counters of the squelches, of the hang AGCs and of the raw-IQ
+conditioner are int32 on both sides and pass unchanged.
+
+The PFB channelizers' states need no function of their own:
+:func:`state_from_numpy` / :func:`state_to_numpy` carry the complex64
+history, the grouped demod's per-run tuples (empty for SSB runs) and the
+kernel route's [S, 5*K1, K2] carry (rows zr, zi, y_de, env, y_dc on both
+sides) as they are.
 """
 
 from __future__ import annotations
@@ -21,7 +27,10 @@ import torch
 
 from quisk_tpu_torch._device import resolve_device
 from quisk_tpu_torch.ops.agc import AGC, WcpAGC
-from quisk_tpu_torch.ops.demod import AMDemod, FMDemod, MixedDemod, SSBDemod
+from quisk_tpu_torch.ops.channelizer import (OversampledPFB, PFBChannelizer,
+                                             PFBRxPipeline)
+from quisk_tpu_torch.ops.demod import (AMDemod, FMDemod, GroupedDemod,
+                                       GroupedDemodTM, MixedDemod, SSBDemod)
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR, make_fir
 from quisk_tpu_torch.ops.fused_front import FusedTuneDecimate
 from quisk_tpu_torch.ops.iir import DCBlock, OnePole
@@ -32,6 +41,7 @@ from quisk_tpu_torch.ops.resample import FracDecim
 from quisk_tpu_torch.ops.squelch import FMSquelch, SSBSquelch
 from quisk_tpu_torch.modes import Mode
 from quisk_tpu_torch.rx.chain import RxChain
+from quisk_tpu_torch.rx.frontend import FrontConditioner
 
 
 def state_from_numpy(tree, device=None):
@@ -76,6 +86,90 @@ def fused_front_from_numpy(p: dict, device=None) -> FusedTuneDecimate:
                                   nb_detect=p.get("nb_detect"),
                                   device=device)
     return op.with_word(p["word"])
+
+
+def _demods_from_numpy(d: dict, device):
+    """(SSBDemod, AMDemod, FMDemod) from {"ssb_gain", "am_gain", "am_pole",
+    "fm_gain", "fm_a", "fm_b"}."""
+    return (SSBDemod(gain=_f32(d["ssb_gain"], device)),
+            AMDemod(dc=DCBlock(a=_f32(d["am_pole"], device)),
+                    gain=_f32(d["am_gain"], device)),
+            FMDemod(deemph=OnePole(a=_f32(d["fm_a"], device),
+                                   b=_f32(d["fm_b"], device)),
+                    gain=_f32(d["fm_gain"], device)))
+
+
+def _runs(runs) -> tuple:
+    return tuple((str(f), int(lo), int(hi)) for f, lo, hi in runs)
+
+
+def grouped_demod_from_numpy(d: dict, device=None) -> GroupedDemod:
+    """{"runs": ((family, lo, hi), ...)} and the keys of
+    :func:`_demods_from_numpy`."""
+    device = resolve_device(device)
+    ssb, am, fm = _demods_from_numpy(d, device)
+    return GroupedDemod(ssb=ssb, am=am, fm=fm, runs=_runs(d["runs"]))
+
+
+def grouped_demod_tm_from_numpy(d: dict, device=None) -> GroupedDemodTM:
+    """The keys of :func:`grouped_demod_from_numpy` (``am_dc.a`` as
+    "am_pole", ``fm_deemph.a/b`` as "fm_a" / "fm_b")."""
+    device = resolve_device(device)
+    ssb, am, fm = _demods_from_numpy(d, device)
+    return GroupedDemodTM(am_dc=am.dc, fm_deemph=fm.deemph,
+                          ssb_gain=ssb.gain, am_gain=am.gain,
+                          fm_gain=fm.gain, runs=_runs(d["runs"]))
+
+
+def pfb_from_numpy(p: dict, device=None):
+    """A PFBChannelizer ("oversampled" false or absent) or OversampledPFB
+    from {"h_poly" [P, K], "block", "pallas_poly", "oversampled"}."""
+    device = resolve_device(device)
+    h = np.asarray(p["h_poly"], np.float32)
+    cls = OversampledPFB if p.get("oversampled") else PFBChannelizer
+    return cls(h_poly=torch.as_tensor(h.copy(), device=device),
+               n_chan=h.shape[1], P=h.shape[0], block=int(p["block"]),
+               pallas_poly=bool(p.get("pallas_poly", False)))
+
+
+def pfb_pipeline_from_numpy(p: dict, device=None) -> PFBRxPipeline:
+    """A PFBRxPipeline from {"pfb" (:func:`pfb_from_numpy`), "demod"
+    (:func:`grouped_demod_tm_from_numpy`), "with_spectrum"} and, for the
+    kernel route, "kd": the JAX pipeline's tuple (w1x, (twr, twi), (w2r,
+    w2i, w2s), am mask, fm mask, tdc, tde, dec) as numpy arrays.  The
+    one-pole coefficients are read from ``dec`` (its first row holds a_dc
+    and a_de); the triangular matrices and ``w2s`` are not carried."""
+    device = resolve_device(device)
+    pfb = pfb_from_numpy({**p["pfb"], "oversampled": True}, device)
+    demod = grouped_demod_tm_from_numpy(p["demod"], device)
+    spectrum = bool(p.get("with_spectrum", True))
+    if p.get("kd") is None:
+        return PFBRxPipeline(pfb=pfb, demod=demod, with_spectrum=spectrum)
+    w1x, (twr, twi), (w2r, w2i, _), am_m, fm_m, _, _, dec = p["kd"]
+    dec = np.asarray(dec, np.float32)
+    kd = (_f32_vec(w1x, device), (_f32_vec(twr, device),
+                                  _f32_vec(twi, device)),
+          (_f32_vec(w2r, device), _f32_vec(w2i, device)),
+          _f32_vec(am_m, device), _f32_vec(fm_m, device))
+    return PFBRxPipeline(
+        pfb=pfb, demod=demod, kd=kd, with_spectrum=spectrum,
+        pallas_demod=True, K1=np.asarray(twr).shape[0],
+        g_ssb=float(demod.ssb_gain), g_am=float(demod.am_gain),
+        g_fm=float(demod.fm_gain), a_dc=float(dec[0, 0]),
+        a_de=float(dec[0, 1]), b_de=float(demod.fm_deemph.b))
+
+
+def front_conditioner_from_numpy(p: dict, device=None) -> FrontConditioner:
+    """{"channels", "dc_mode", "sample_rate", "dc_a", "m00", "m10", "m11"
+    [C, 1] float32, "delay_sel" [C, 1] int32}: the JAX op's fields."""
+    device = resolve_device(device)
+    return FrontConditioner(
+        channels=int(p["channels"]), dc_mode=str(p["dc_mode"]),
+        sample_rate=float(p["sample_rate"]), dc_a=float(p["dc_a"]),
+        m00=_f32_vec(p["m00"], device), m10=_f32_vec(p["m10"], device),
+        m11=_f32_vec(p["m11"], device),
+        delay_sel=torch.as_tensor(np.asarray(p["delay_sel"], np.int32).copy(),
+                                  device=device))
 
 
 def _agc_from_numpy(a: dict, device):
@@ -148,7 +242,8 @@ def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
     ``demod``: {"mode" [C], "ssb_gain", "am_gain", "am_pole", "fm_gain",
     "fm_a", "fm_b"}; ``agc``: {"target", "max_lgain", "release_inc",
     "lookahead"}, or the WcpAGC's constants by name with "hang_samples",
-    "hang_enable" and "lookahead", or None; ``ons``: {name: [C, 1]}.
+    "hang_enable" and "lookahead", or None; ``ons``: {name: [C, 1]};
+    ``cond`` (see :func:`front_conditioner_from_numpy`) or None/absent.
     Optional stages, each a dict of the JAX op's fields by name or
     None/absent: ``nb`` (limit, avg_win, kwidth, pool), ``notch`` (window,
     depth_bins, n_notch, block, nfft, ntaps, ema, snr_open), ``nr``
@@ -181,19 +276,17 @@ def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
                                 int(p["frac"]["block"]), device=device)
     d = p["demod"]
     modes = np.asarray(d["mode"], np.int32)
+    ssb, am, fm = _demods_from_numpy(d, device)
     demod = MixedDemod(
-        ssb=SSBDemod(gain=_f32(d["ssb_gain"], device)),
-        am=AMDemod(dc=DCBlock(a=_f32(d["am_pole"], device)),
-                   gain=_f32(d["am_gain"], device)),
-        fm=FMDemod(deemph=OnePole(a=_f32(d["fm_a"], device),
-                                  b=_f32(d["fm_b"], device)),
-                   gain=_f32(d["fm_gain"], device)),
-        ext=None, mode=torch.as_tensor(modes.copy(), device=device),
+        ssb=ssb, am=am, fm=fm, ext=None,
+        mode=torch.as_tensor(modes.copy(), device=device),
         iq_out=bool(np.any(modes == int(Mode.DGT_IQ))))
     agc = (_agc_from_numpy(p["agc"], device)
            if p.get("agc") is not None else None)
     ons = {k: torch.as_tensor(np.asarray(v, np.float32).copy(), device=device)
            for k, v in p.get("ons", {}).items()}
+    cond = (front_conditioner_from_numpy(p["cond"], device)
+            if p.get("cond") is not None else None)
     return RxChain(nco=nco, front=front, stages=stages, bp=bp, frac=frac,
                    demod=demod, agc=agc, ons=ons,
                    **_featured_from_numpy(p, device),
@@ -202,11 +295,11 @@ def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
                        device=device),
                    channels=C, block_in=int(p["block_in"]),
                    block_audio=int(p["block_audio"]),
-                   fs_audio=float(p["fs_audio"]))
+                   fs_audio=float(p["fs_audio"]), cond=cond)
 
 
-_STATE_KEYS = ("nbg", "nco", "front", "stages", "bp", "frac", "demod", "agc",
-               "nb", "notch", "nr", "anf", "squelch", "fm_sq")
+_STATE_KEYS = ("nbg", "nco", "cond", "front", "stages", "bp", "frac", "demod",
+               "agc", "nb", "notch", "nr", "anf", "squelch", "fm_sq")
 
 
 def rx_state_from_numpy(s: dict, device=None) -> dict:
@@ -215,8 +308,8 @@ def rx_state_from_numpy(s: dict, device=None) -> dict:
     history, demod ((AM x_prev, y_prev), (FM prev, y_prev), ext), AGC
     ((delay, lg), or the WcpAGC's dict), the carried blanker gain ``nbg``
     and the states of nb, notch, nr, anf, squelch and fm_sq (empty tuples
-    for stages the chain lacks).  The conditioner's state is not carried
-    (raw-IQ conditioning is not ported)."""
+    for stages the chain lacks); ``cond`` is the raw-IQ conditioner's dict
+    (its ``count`` and ``key_delay`` int32)."""
     return state_from_numpy({k: s[k] for k in _STATE_KEYS}, device)
 
 

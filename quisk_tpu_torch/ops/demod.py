@@ -1,4 +1,5 @@
-"""Demodulators: SSB/CW, AM, FM, and a branch-free mixed-mode batch.
+"""Demodulators: SSB/CW, AM, FM, a branch-free mixed-mode batch, and the
+grouped demods of the channelizer.
 
 Parity targets in the reference (quisk.c:1848 ``quisk_process_demodulate``):
 
@@ -9,7 +10,10 @@ Parity targets in the reference (quisk.c:1848 ``quisk_process_demodulate``):
   arg(x[n] * conj(x[n-1])) then one-pole de-emphasis at 300 Hz.
 
 The mixed-mode batch computes every family and selects per channel with
-``torch.where``, so the mode vector is data.
+``torch.where``, so the mode vector is data.  The grouped demods
+(:class:`GroupedDemod` channel-major, :class:`GroupedDemodTM` time-major on
+(re, im) planes) run each family only on its own contiguous run of
+channels, fixed at ``create``: the PFB channelizer's channel -> mode plan.
 """
 
 from __future__ import annotations
@@ -165,3 +169,127 @@ class MixedDemod:
             ext_st, a_ext = self.ext(ext_st, x)
             audio = torch.where(m == int(Mode.EXT), a_ext, audio)
         return (am_st, fm_st, ext_st), audio
+
+
+_FAMILIES = {int(Mode.AM): "am", int(Mode.FM): "fm"}
+
+
+def mode_runs(mode, channels: int) -> tuple:
+    """((family, lo, hi), ...): the contiguous runs of channels of one
+    demod family ("ssb", "am" or "fm") in a mode vector."""
+    m = np.broadcast_to(np.asarray(mode, np.int32), (channels,))
+    fam = [_FAMILIES.get(int(v), "ssb") for v in m]
+    edges = [0] + [i for i in range(1, channels)
+                   if fam[i] != fam[i - 1]] + [channels]
+    return tuple((fam[lo], lo, hi) for lo, hi in zip(edges[:-1], edges[1:]))
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedDemod:
+    """Mode demodulation over contiguous per-mode channel runs.
+
+    Where :class:`MixedDemod` computes every family on every channel and
+    selects, this slices each run of same-family channels and runs only
+    its own demod.  The grouping is fixed at ``create`` (the channelizer's
+    channel -> mode plan); per-channel retuning stays with MixedDemod.
+    State: one demod state per run."""
+
+    ssb: SSBDemod
+    am: AMDemod
+    fm: FMDemod
+    runs: tuple                # ((family, lo, hi), ...)
+
+    @classmethod
+    def create(cls, mode, sample_rate: float, channels: int,
+               fm_deviation_hz: float = 5000.0, device=None):
+        device = resolve_device(device)
+        return cls(ssb=SSBDemod.create(device), am=AMDemod.create(device),
+                   fm=FMDemod.create(sample_rate, device, fm_deviation_hz),
+                   runs=mode_runs(mode, channels))
+
+    def init_state(self, channels: int):
+        return tuple(getattr(self, f).init_state(hi - lo)
+                     for f, lo, hi in self.runs)
+
+    def __call__(self, state, x: torch.Tensor):
+        new_states, outs = [], []
+        for st, (f, lo, hi) in zip(state, self.runs):
+            st, a = getattr(self, f)(st, x[lo:hi])
+            new_states.append(st)
+            outs.append(a)
+        return tuple(new_states), torch.cat(outs, dim=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedDemodTM:
+    """Time-major grouped demod over (re, im) float planes ``[..., T, C]``:
+    time on axis -2, channels last, as the PFB's cross-branch IDFT leaves
+    them, so the channel-major complex batch is never formed.  Per family
+    the math of :class:`GroupedDemod`:
+
+    - SSB/CW: audio = gain * re;
+    - AM: envelope, then the DC blocker (time-major one-pole);
+    - FM: phase-difference discriminator (gated where the squared
+      magnitude of z[t] conj(z[t-1]) is below 1e-24), then de-emphasis.
+
+    All state is real float32 (FM's previous sample is an (re, im) pair);
+    leading axes (the stream axis) broadcast through."""
+
+    am_dc: DCBlock
+    fm_deemph: OnePole
+    ssb_gain: torch.Tensor
+    am_gain: torch.Tensor
+    fm_gain: torch.Tensor
+    runs: tuple                # ((family, lo, hi), ...)
+
+    @classmethod
+    def create(cls, mode, sample_rate: float, channels: int,
+               fm_deviation_hz: float = 5000.0, gain: float = 2.0,
+               deemph_hz: float = 300.0, am_pole: float = 0.995,
+               device=None):
+        device = resolve_device(device)
+        g_fm = sample_rate / (2.0 * np.pi * fm_deviation_hz)
+
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        return cls(am_dc=DCBlock.create(device, am_pole),
+                   fm_deemph=OnePole.lowpass(deemph_hz, sample_rate, device),
+                   ssb_gain=f32(gain), am_gain=f32(gain), fm_gain=f32(g_fm),
+                   runs=mode_runs(mode, channels))
+
+    def init_state(self, channels: int, lead: tuple = ()):
+        dev = self.ssb_gain.device
+        count = {"ssb": 0, "am": 2, "fm": 3}     # am: (x_prev, y_prev);
+        #                                          fm: (prev re, prev im, y)
+        return tuple(tuple(torch.zeros((*lead, hi - lo), dtype=torch.float32,
+                                       device=dev) for _ in range(count[f]))
+                     for f, lo, hi in self.runs)
+
+    def _ssb(self, st, yr, yi):
+        return st, self.ssb_gain * yr
+
+    def _am(self, st, yr, yi):
+        st, audio = self.am_dc.apply_tm(st, torch.sqrt(yr * yr + yi * yi))
+        return st, self.am_gain * audio
+
+    def _fm(self, st, yr, yi):
+        pr, pi, de = st
+        xr1 = torch.cat([pr[..., None, :], yr[..., :-1, :]], dim=-2)
+        xi1 = torch.cat([pi[..., None, :], yi[..., :-1, :]], dim=-2)
+        dr = yr * xr1 + yi * xi1
+        di = yi * xr1 - yr * xi1
+        disc = torch.where(dr * dr + di * di > 1e-24, torch.atan2(di, dr),
+                           torch.zeros((), dtype=yr.dtype, device=yr.device))
+        de, audio = self.fm_deemph.apply_tm(de, disc * self.fm_gain)
+        return (yr[..., -1, :], yi[..., -1, :], de), audio
+
+    def __call__(self, state, yr: torch.Tensor, yi: torch.Tensor):
+        """(state, yr, yi) -> (state, audio [..., T, C])."""
+        new_states, outs = [], []
+        for st, (f, lo, hi) in zip(state, self.runs):
+            st, a = getattr(self, "_" + f)(st, yr[..., lo:hi],
+                                           yi[..., lo:hi])
+            new_states.append(st)
+            outs.append(a)
+        return tuple(new_states), torch.cat(outs, dim=-1)

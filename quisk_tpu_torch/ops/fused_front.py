@@ -110,28 +110,18 @@ def _banded_fir(re: torch.Tensor, im: torch.Tensor, h_rev: torch.Tensor,
     return torch.complex(y[:, 0], y[:, 1])
 
 
-def _check_tensors(ref: torch.Tensor, want: dict) -> None:
-    for name, (t, dt, shape) in want.items():
-        if t.device != ref.device:
-            raise ValueError(f"{name} on {t.device}, x on {ref.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _check(x, hist, word, phase0, h_rev, decim):
     if x.dim() != 2:
         raise ValueError(f"x must be [C, B], got {tuple(x.shape)}")
     C, B = x.shape
     T = h_rev.shape[0] if h_rev.dim() == 1 else -1
-    _check_tensors(x, {"x": (x, torch.complex64, (C, B)),
-                       "hist": (hist, torch.complex64, (C, T - 1)),
-                       "word": (word, torch.int64, (C,)),
-                       "phase0": (phase0, torch.int64, (C,)),
-                       "h_rev": (h_rev, torch.float32, (T,))})
+    _kernels.check_tensors(x, {
+        "x": (x, torch.complex64, (C, B)),
+        "hist": (hist, torch.complex64, (C, T - 1)),
+        "word": (word, torch.int64, (C,)),
+        "phase0": (phase0, torch.int64, (C,)),
+        "h_rev": (h_rev, torch.float32, (T,)),
+    })
     if T < 1 or decim < 1 or B % decim:
         raise ValueError(f"need taps >= 1 and block {B} divisible by "
                          f"decim {decim}")
@@ -145,14 +135,10 @@ def _check_gain_block(B: int) -> None:
 
 def _launch(name: str, x, *args) -> None:
     """Call launcher ``name`` on x's device and stream; raise on failure."""
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
     if x.shape[0] > 65535:
         raise ValueError(f"{x.shape[0]} channels exceed the kernel grid's "
                          f"65535")
-    with torch.cuda.device(x.device):
-        err = _launchers()[name](
-            *args, torch.cuda.current_stream(x.device).cuda_stream)
+    err = _kernels.call(x, _launchers()[name], *args)
     if err == _ERR_TAPS_TOO_LONG:
         raise ValueError("the taps at this decimation need more shared "
                          "memory than one block has")
@@ -302,8 +288,9 @@ def fused_tune_decimate_gained(x, hist, word, phase0, h_rev, decim: int,
     C, B = x.shape
     _check_gain_block(B)
     _, GH = gain_grid(h_rev.shape[0])
-    _check_tensors(x, {"gain16": (gain16, torch.float32,
-                                  (C, GH + B // GROUP))})
+    _kernels.check_tensors(x, {
+        "gain16": (gain16, torch.float32, (C, GH + B // GROUP)),
+    })
     if x.device.type == "cpu":
         return fused_tune_decimate_gained_plain(x, hist, word, phase0, h_rev,
                                                 decim, gain16)
@@ -386,10 +373,12 @@ def fused_tune_decimate_nb(x, hist, word, phase0, h_rev, decim: int,
     _, GH = gain_grid(h_rev.shape[0])
     if rc.dim() != 1 or rc.shape[0] % 2 == 0:
         raise ValueError(f"rc must be [2*HC+1], got {tuple(rc.shape)}")
-    _check_tensors(x, {"hist_gain": (hist_gain, torch.float32, (C, GH)),
-                       "on": (on, torch.float32, (C, 1)),
-                       "limit": (limit, torch.float32, ()),
-                       "rc": (rc, torch.float32, tuple(rc.shape))})
+    _kernels.check_tensors(x, {
+        "hist_gain": (hist_gain, torch.float32, (C, GH)),
+        "on": (on, torch.float32, (C, 1)),
+        "limit": (limit, torch.float32, ()),
+        "rc": (rc, torch.float32, tuple(rc.shape)),
+    })
     if x.device.type == "cpu":
         return fused_tune_decimate_nb_plain(x, hist, word, phase0, h_rev,
                                             decim, hist_gain, on, limit, rc,

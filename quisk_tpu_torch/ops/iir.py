@@ -7,7 +7,8 @@ a composition of affine maps, evaluated over the block axis in log-depth
 the last output sample.  Long blocks (B >= 2048, B % 128 == 0, scalar
 ``a``) take the chunked form of ``quisk_tpu.ops.iir``: a [128, 128]
 lower-triangular decay matmul within chunks plus a short scan over chunk
-carries, so the sums group as the reference's do.  :class:`Biquad` runs
+carries, so the sums group as the reference's do; ``apply_tm`` is the same with
+time on axis -2 and channels last.  :class:`Biquad` runs
 the same log-step scan over 2x2 affine maps.
 """
 
@@ -19,15 +20,18 @@ import numpy as np
 import torch
 
 
-def affine_scan(A: torch.Tensor, Bv: torch.Tensor):
-    """Inclusive scan of the maps ``y -> A[n] y + Bv[n]`` along the last
-    axis: returns (A_cum, B_cum) with y[n] = B_cum[n] + A_cum[n] * y[-1]."""
-    n = A.shape[-1]
+def affine_scan(A: torch.Tensor, Bv: torch.Tensor, dim: int = -1):
+    """Inclusive scan of the maps ``y -> A[n] y + Bv[n]`` along axis ``dim``
+    (the last by default): returns (A_cum, B_cum) with
+    y[n] = B_cum[n] + A_cum[n] * y[-1]."""
+    n = A.shape[dim]
     s = 1
     while s < n:
-        Bv = torch.cat([Bv[..., :s], A[..., s:] * Bv[..., :-s] + Bv[..., s:]],
-                       dim=-1)
-        A = torch.cat([A[..., :s], A[..., s:] * A[..., :-s]], dim=-1)
+        lo, hi = A.narrow(dim, 0, s), A.narrow(dim, s, n - s)
+        Bv = torch.cat([Bv.narrow(dim, 0, s),
+                        hi * Bv.narrow(dim, 0, n - s)
+                        + Bv.narrow(dim, s, n - s)], dim=dim)
+        A = torch.cat([lo, hi * A.narrow(dim, 0, n - s)], dim=dim)
         s *= 2
     return A, Bv
 
@@ -81,6 +85,55 @@ def _first_order_chunked(x: torch.Tensor, a: torch.Tensor, b,
     return y.reshape(C, B)
 
 
+def first_order_scan_tm(x: torch.Tensor, a, b, y_prev: torch.Tensor):
+    """Time-major twin of :func:`first_order_scan`: x [..., T, C] with time
+    on axis -2 and channels last (the layout the PFB's cross-branch IDFT
+    produces), a, b scalar, y_prev [..., C].  Long blocks (T >= 2048,
+    T % 128 == 0, scalar ``a``) take the chunked triangular matmul, the
+    rest the log-step scan, as ``quisk_tpu.ops.iir._first_order_scan_tm``
+    chooses."""
+    a_t = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    T = x.shape[-2]
+    if a_t.ndim == 0 and T >= 2048 and T % 128 == 0:
+        return _first_order_chunked_tm(x, a_t, b, y_prev)
+    A = torch.broadcast_to(a_t, x.shape)
+    Bv = torch.as_tensor(b, dtype=x.dtype, device=x.device) * x
+    A_cum, B_cum = affine_scan(A, Bv, dim=-2)
+    return B_cum + A_cum * y_prev[..., None, :]
+
+
+def _first_order_chunked_tm(x: torch.Tensor, a: torch.Tensor, b,
+                            y_prev: torch.Tensor, L: int = 128):
+    """Chunked y[n] = a*y[n-1] + b*x[n] over axis -2: the factorisation of
+    :func:`_first_order_chunked` with each chunk an fp32 [L, L] x [L, C]
+    matmul, channels last."""
+    T, C = x.shape[-2:]
+    lead = x.shape[:-2]
+    nch = T // L
+    dt, dev = x.dtype, x.device
+    u = (torch.as_tensor(b, dtype=dt, device=dev) * x).reshape(
+        *lead, nch, L, C)
+    n = torch.arange(L, device=dev)
+    d = n[:, None] - n[None, :]
+    dm = torch.clamp(d, min=0).to(dt)
+    one = torch.ones((), dtype=dt, device=dev)
+    sgn = torch.where(a < 0, -one, one)
+    mag = torch.abs(a)
+    pw = (mag ** dm) * torch.where(dm % 2 == 0, one, sgn)
+    Tm = torch.where(d >= 0, pw, torch.zeros((), dtype=dt, device=dev))
+    yin = torch.matmul(Tm, u)                               # [.., nch, L, C]
+    e = yin[..., :, -1, :]                                  # [.., nch, C]
+    aL = (mag ** L) * (sgn ** (L % 2) if L % 2 else 1.0)
+    Aj = torch.broadcast_to(aL, e.shape)
+    Acum, Ecum = affine_scan(Aj, e, dim=-2)
+    s = Ecum + Acum * y_prev[..., None, :]                  # chunk end states
+    c = torch.cat([y_prev[..., None, :], s[..., :-1, :]], dim=-2)
+    n1 = (n + 1).to(dt)
+    decay = (mag ** n1) * torch.where((n + 1) % 2 == 0, one, sgn)   # [L]
+    y = yin + c[..., :, None, :] * decay[:, None]
+    return y.reshape(*lead, T, C)
+
+
 @dataclasses.dataclass(frozen=True)
 class OnePole:
     """y[n] = a*y[n-1] + b*x[n].  Lowpass: a = exp(-2 pi fc / fs), b = 1-a."""
@@ -102,6 +155,11 @@ class OnePole:
     def __call__(self, y_prev: torch.Tensor, x: torch.Tensor):
         y = first_order_scan(x, self.a, self.b, y_prev)
         return y[:, -1], y
+
+    def apply_tm(self, y_prev: torch.Tensor, x: torch.Tensor):
+        """Time-major form: x [..., T, C], y_prev [..., C]."""
+        y = first_order_scan_tm(x, self.a, self.b, y_prev)
+        return y[..., -1, :], y
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +183,13 @@ class DCBlock:
         d = x - torch.cat([x_prev[:, None], x[:, :-1]], dim=-1)
         y = first_order_scan(d, self.a, 1.0, y_prev)
         return (x[:, -1], y[:, -1]), y
+
+    def apply_tm(self, state, x: torch.Tensor):
+        """Time-major form: x [..., T, C], the state pair [..., C] each."""
+        x_prev, y_prev = state
+        d = x - torch.cat([x_prev[..., None, :], x[..., :-1, :]], dim=-2)
+        y = first_order_scan_tm(d, self.a, 1.0, y_prev)
+        return (x[..., -1, :], y[..., -1, :]), y
 
 
 def _rbj(b0, b1, b2, a1, a2, a0, device) -> "Biquad":

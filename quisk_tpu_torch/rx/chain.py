@@ -1,5 +1,5 @@
-"""The composed receive chain: blank -> tune -> decimate -> filter -> demod
--> notch / ANF / NR -> AGC -> squelch.
+"""The composed receive chain: condition -> blank -> tune -> decimate ->
+filter -> demod -> notch / ANF / NR -> AGC -> squelch.
 
 The per-block RX pipeline of the reference (``quisk_process_samples``,
 quisk.c:2289): complex tune by NCO, decimation, channel filter and
@@ -8,7 +8,9 @@ a ``[channels, block]`` tensor, so one step demodulates many independent
 receivers.  Shapes and rates are static (chosen by the planner); tunables
 (NCO words, filter masks, mode ids) are tensors.
 
-Stage order follows the reference RX path (quisk.c:2289): blanker on raw
+Stage order follows the reference RX path (quisk.c:2289): raw-IQ
+conditioning (rx/frontend.py: rail delay, I/Q balance, DC removal,
+inversion; built with ``front_cond`` or ``dc_remove_bw``), blanker on raw
 IQ, tune, decimate, channel filter, demodulate, then the audio processors
 (auto-notch, LMS notch and spectral NR before the AGC, squelch muting
 last).  Every optional stage has a ``[C, 1]`` blend weight in ``ons``:
@@ -44,14 +46,8 @@ from quisk_tpu_torch.ops.noise import AutoNotch, NoiseBlanker
 from quisk_tpu_torch.ops.nr import BlockLMS, SpectralNR
 from quisk_tpu_torch.ops.resample import FracDecim
 from quisk_tpu_torch.ops.squelch import FMSquelch, SSBSquelch
+from quisk_tpu_torch.rx.frontend import FrontConditioner
 from quisk_tpu_torch.rx.planner import plan_block_sizes, plan_decimation
-
-# optional stages of quisk_tpu.rx.RxChainConfig and the port slice that
-# brings each; until then asking for one raises
-_LATER = {
-    "front_cond": "slice 3 (raw-IQ conditioning)",
-    "dc_remove_bw": "slice 3 (raw-IQ conditioning)",
-}
 
 
 def mode_band(mode: Mode, bandwidth: float | None = None,
@@ -86,12 +82,14 @@ def _bands(modes, bandwidth_hz, cw_pitch):
 @dataclasses.dataclass(frozen=True)
 class RxChainConfig:
     """Static configuration of a receive chain (the fields of
-    ``quisk_tpu.rx.RxChainConfig`` but the TPU-only ``mxu_stft``; the
-    raw-IQ conditioning raises until its slice is ported).
+    ``quisk_tpu.rx.RxChainConfig`` but the TPU-only ``mxu_stft``).
 
     ``agc_profile``: "delay" is the block-parallel lookahead AGC
     (quisk.c:2162), "wcp" the conformance-exact WDSP 5-state AGC.
-    ``noise_blanker``: 0 off, 1/2/3 the level."""
+    ``noise_blanker``: 0 off, 1/2/3 the level.  ``front_cond`` builds the
+    raw-IQ conditioner (trim set at runtime with ``cond.with_balance``);
+    ``dc_remove_bw``: 0 off, 1 the window average, > 1 the one-pole DC
+    blocker of that bandwidth in Hz."""
 
     sample_rate: float
     channels: int
@@ -116,11 +114,7 @@ class RxChainConfig:
     front_cond: bool = False
     dc_remove_bw: int = 0
 
-    def check_ported(self) -> None:
-        for name, where in _LATER.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"RxChainConfig.{name} is not ported yet: {where}")
+    def check(self) -> None:
         if self.agc_profile not in ("delay", "wcp"):
             raise ValueError(f"agc_profile={self.agc_profile!r}: want "
                              f"'delay' or 'wcp'")
@@ -167,6 +161,7 @@ class RxChain:
     block_in: int
     block_audio: int
     fs_audio: float
+    cond: FrontConditioner | None = None  # raw-IQ conditioning, first
 
     @property
     def device(self) -> torch.device:
@@ -179,7 +174,7 @@ class RxChain:
                mode: Sequence[int] | int = Mode.USB,
                bandwidth_hz: Sequence[float] | None = None,
                device=None) -> "RxChain":
-        config.check_ported()
+        config.check()
         device = resolve_device(device)
         C = config.channels
         plan = plan_decimation(config.sample_rate, config.audio_rate)
@@ -203,6 +198,11 @@ class RxChain:
         nb = (NoiseBlanker.create(config.sample_rate, config.noise_blanker,
                                   device=device)
               if config.noise_blanker else None)
+        cond = None
+        if config.front_cond or config.dc_remove_bw > 0:
+            cond = FrontConditioner.create(C, config.sample_rate,
+                                           dc_bw=config.dc_remove_bw,
+                                           device=device)
         nco = front = None
         stages = []
         if config.fused_frontend and stage_specs:
@@ -259,7 +259,7 @@ class RxChain:
                    tune_base=torch.as_tensor(base.astype(np.float32),
                                              device=device),
                    channels=C, block_in=B_in, block_audio=B_audio,
-                   fs_audio=plan.fs_out)
+                   fs_audio=plan.fs_out, cond=cond)
 
     # --------------------------------------------------------------- retune
     def retune(self, config: RxChainConfig,
@@ -396,6 +396,7 @@ class RxChain:
         return {
             "nbg": nbg,
             "nco": st(self.nco),
+            "cond": st(self.cond),
             "front": st(self.front),
             "stages": tuple(s.init_state(C) for s in self.stages),
             "bp": self.bp.init_state(C),
@@ -411,19 +412,24 @@ class RxChain:
         }
 
     # ----------------------------------------------------------------- step
-    def step(self, state, x: torch.Tensor):
+    def step(self, state, x: torch.Tensor, key_down=False):
         """One block: x [C, block_in] complex64 -> audio [C, block_audio]
-        (complex64 when a channel is DGT_IQ).  Blanker (in the front
+        (complex64 when a channel is DGT_IQ).  Raw-IQ conditioning
+        (``key_down`` gates its window-average DC mode, sound.c:221-229)
+        -> blanker (in the front
         kernel, or by torch ops with the gain in the kernel, or standalone)
         -> front -> stages -> channel filter -> frac -> RF level for the FM
         squelch -> demod -> notch -> anf -> nr -> agc -> squelch -> fm_sq,
-        each optional stage blended by its ``ons`` weight."""
+        each optional stage from the blanker on blended by its ``ons``
+        weight."""
         st = dict(state)
 
         def blend(name, wet, dry):
             g = self.ons[name]
             return wet * g + dry * (1.0 - g)
 
+        if self.cond is not None:
+            st["cond"], x = self.cond(st["cond"], x, key_down=key_down)
         if self._nb_fused:
             st["front"], y, gout = self.front.call_nb(
                 st["front"], x, st["nbg"], self.ons["nb"], self.nb.limit)

@@ -106,6 +106,19 @@ def test_port_sources_cover_the_featured_modules():
             "convert.py", "chip_smoke.py"} <= names
 
 
+def test_port_sources_cover_the_pfb_and_conditioner_modules():
+    names = {p.name for p in _port_sources()}
+    assert {"channelizer.py", "pfb_kernels.py", "ewscan.py", "frontend.py",
+            "demod.py"} <= names
+    csrc = Path(__file__).resolve().parents[1] / "quisk_tpu_torch" / "csrc"
+    assert {p.name for p in csrc.glob("*.cu")} == {
+        "fused_tune_decimate.cu", "pfb_poly.cu", "pfb_demod.cu"}
+    for cu in csrc.glob("*.cu"):               # hand kernels: no library
+        text = cu.read_text()
+        assert "cublas" not in text.lower() and "cufft" not in text.lower()
+        assert "torch/" not in text
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(
                              Path(__file__).resolve().parents[1])))

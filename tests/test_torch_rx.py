@@ -323,10 +323,34 @@ def test_dgt_iq_rows_carry_filtered_iq():
 
 
 @pytest.mark.parametrize("opt", [{"front_cond": True}, {"dc_remove_bw": 1}])
-def test_later_slice_stages_raise(opt):
-    cfg = RxChainConfig(sample_rate=FS, channels=4, **opt)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        RxChain.create(cfg, device="cpu")
+def test_conditioned_chain_matches_jax(opt):
+    """``front_cond`` / ``dc_remove_bw`` put the raw-IQ conditioner ahead
+    of the chain (rx/frontend.py): 4 channels, unfused, the trim set on
+    both sides, 4 blocks; audio > 90 dB from block 2 on and the
+    conditioner's state equal (tests/test_torch_frontend.py holds the
+    conditioner itself and the fused chain at C=128)."""
+    c, modes = 4, [int(Mode.USB), int(Mode.LSB), int(Mode.AM), int(Mode.CWU)]
+    tune = [-200e3, -50e3, 30e3, 180e3]
+    kw = dict(sample_rate=FS, channels=c, audio_block=512, **opt)
+    jch = JRxChain.create(JRxChainConfig(**kw), tune, modes)
+    ch = RxChain.create(RxChainConfig(**kw), tune, modes, device="cpu")
+    assert ch.cond is not None
+    assert ch.cond.dc_mode == jch.cond.dc_mode == (
+        "avg" if opt.get("dc_remove_bw") else "off")
+    jch = jch.replace(cond=jch.cond.with_balance(0.03, -2.0, True))
+    ch = dataclasses.replace(ch, cond=ch.cond.with_balance(0.03, -2.0, True))
+    x = _input(ch.block_in)[:c] + np.complex64(0.2 + 0.1j)
+    js, ps = jch.init_state(), ch.init_state()
+    for i in range(NBLK):
+        blk = x[:, i * ch.block_in:(i + 1) * ch.block_in]
+        js, ja = jch.step(js, blk, key_down=(i == 1))
+        ps, pa = ch.step(ps, torch.as_tensor(blk), key_down=(i == 1))
+        if i >= 2:
+            assert snr_rows(np.asarray(ja), pa.numpy()).min() > 90.0
+    assert sorted(ps["cond"]) == sorted(js["cond"])
+    for k, v in js["cond"].items():
+        assert np.allclose(np.asarray(v), ps["cond"][k].numpy(), atol=1e-5)
+        assert np.asarray(v).dtype == ps["cond"][k].numpy().dtype, k
 
 
 def test_unknown_agc_profile_raises():
@@ -460,7 +484,7 @@ def test_featured_chain_matches_jax(jax_featured):
     assert sorted(ch.ons) == sorted(jax_featured["chain"].ons)
     x = torch.as_tensor(jax_featured["x"])
     st = ch.init_state()
-    assert set(st) == set(jax_featured["mid_state"]) - {"cond"}
+    assert set(st) == set(jax_featured["mid_state"])
     split = set()
     for i in range(NBLK_F):
         st, a = ch.step(st, x[:, i * ch.block_in:(i + 1) * ch.block_in])
@@ -508,14 +532,12 @@ def test_featured_state_crosses_both_ways(jax_featured):
     assert back["front"][0].dtype == np.uint32
     assert back["squelch"][0].dtype == back["fm_sq"][0].dtype == np.int32
     for key, ref in jax_featured["mid_state"].items():
-        if key == "cond":
-            continue
         flat_ref, flat_got = _leaves(ref), _leaves(back[key])
         assert len(flat_ref) == len(flat_got), key
         for r, g in zip(flat_ref, flat_got):
             assert r.shape == g.shape and r.dtype == g.dtype, key
     jch = jax_featured["chain"]
-    _, ja = jch.step({**back, "cond": ()}, x[:, 4 * B:5 * B])
+    _, ja = jch.step(back, x[:, 4 * B:5 * B])
     _assert_featured_block(jax_featured["outs"][4], np.asarray(ja))
 
 
