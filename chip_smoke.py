@@ -74,11 +74,13 @@ channelizer beside it.  Phases, each fatal on failure:
     path's: both polyphase sums over 3 streamed blocks (K 10 to 4096, tap
     counts 3, 5 and 8, frame counts no tile divides, 2 streams; within
     1e-5 of the peak); the fused stage-2 IDFT + demod over 3 streamed
-    calls from non-zero carries (K 256 and 512, frame counts 32 to 300 odd
-    ones among them, 2 streams, mixed / all-AM / all-FM masks: non-FM
+    calls from non-zero carries (K 256 and 512, frame counts 3 to 805, odd
+    ones among them, up to four of the kernel's 256-frame chunks with a
+    ragged last one, 2 streams, mixed / all-AM / all-FM masks: non-FM
     within 1e-4 of the peak, FM on noise by RMS) and on planes that put a
     carrier on every channel (FM sample by sample); launch counters rise
-    by the calls made; what the kernels refuse raises;
+    by the calls made; what the kernels refuse raises, a stage-2 basis
+    that is not the inverse DFT times a rotation among it;
 12. the PFB receiver at full width, PFBRxPipeline.create(4096, 4096*8192,
     quarters, channel_rate=96000, pallas_poly=True, pallas_demod=True),
     for 3 blocks of seeded noise with a carrier 1 kHz off a USB channel,
@@ -168,13 +170,15 @@ PFB_BLOCKS = 3
 PFB_CPU_MULT = 256         # depth of the CPU comparison
 PFB_USB, PFB_AM, PFB_FM = 300, 2500, 3500     # channels that get a signal
 # The polyphase kernels add P (or 2P) products per output in the plain
-# version's order, fused: within 1e-5 of the peak.  The demod kernel sums
-# its 128-point product term by term where the plain version calls four
-# matmuls, and runs its one-poles in chunks of 8 where the plain version
+# version's order, fused: within 1e-5 of the peak.  The demod kernel
+# computes its 128-point transform as an FFT where the plain version calls
+# four matmuls, and runs its one-poles from zero in each 256-frame chunk,
+# the carries folded across chunks afterwards, where the plain version
 # scans: non-FM positions within 1e-4 of the peak, spec within 1e-4
-# relative.  FM audio on noise wraps at +-pi, where a rounding difference
-# flips a sample by 2 pi: held by RMS within 0.1 dB; FM with a carrier is
-# held sample by sample.
+# relative.  FM audio
+# on noise wraps at +-pi, where a rounding difference flips a sample by
+# 2 pi: held by RMS within 0.1 dB; FM with a carrier is held sample by
+# sample.
 POLY_TOL = 1e-5
 DEMOD_TOL = 1e-4
 SPEC_RTOL = 1e-4
@@ -1096,10 +1100,14 @@ POLY_SHAPES = ((2, 256, 8, 32, 2), (2, 512, 8, 100, 1), (2, 4096, 8, 200, 1),
                (2, 12, 3, 7, 2), (1, 256, 8, 24, 2), (1, 512, 8, 77, 1),
                (1, 10, 5, 9, 2))
 # (K, frames, streams, masks): frame counts that leave a warp, a tile and
-# the last tile partly filled, odd ones among them
+# the last tile partly filled, odd ones among them; the kernel splits time
+# into chunks of 256 frames, one block each: shapes over 2 to 4 chunks with
+# a ragged last one, and one shorter than a warp's run of 4 frames
 DEMOD_SHAPES = ((256, 32, 2, "mixed"), (512, 101, 2, "mixed"),
                 (256, 300, 1, "all_am"), (512, 44, 2, "all_fm"),
-                (256, 131, 1, "mixed"))
+                (256, 131, 1, "mixed"), (256, 3 * 256 + 37, 2, "mixed"),
+                (512, 2 * 256 + 1, 1, "all_am"), (256, 256 + 5, 1, "all_fm"),
+                (512, 3, 2, "mixed"))
 
 
 def quarters(K: int) -> list[int]:
@@ -1274,6 +1282,23 @@ def phase_pfb_kernels(report: dict, rng) -> None:
             print(f"  refused: {e}", flush=True)
         else:
             raise AssertionError("a bad call launched")
+    # a stage-2 basis that is not the inverse DFT times a rotation: the
+    # kernel computes an FFT, so the wrapper must refuse it, not launch
+    pipe = PFBRxPipeline.create(256, 512, quarters(256), PFB_RATE,
+                                pallas_demod=True, device=dev)
+    (twr, twi, w2r, w2i, am_m, fm_m), kw = demod_args(pipe)
+    w2_bad = w2r.clone()
+    w2_bad[5, 7] += 1e-3
+    n0 = pk.pfb_demod_call.launches
+    try:
+        pk.pfb_demod_call(torch.zeros((1, 4 * pipe.K1, 128), device=dev),
+                          torch.zeros((1, 5 * pipe.K1, 128), device=dev),
+                          twr, twi, w2_bad, w2i, am_m, fm_m, **kw)
+    except ValueError as e:
+        print(f"  refused: {e}", flush=True)
+    else:
+        raise AssertionError("a non-DFT stage-2 basis launched")
+    assert pk.pfb_demod_call.launches == n0
     report["pfb_kernel_check"] = {"launches": rose}
 
 
@@ -1595,18 +1620,35 @@ def phase_timing_pfb(report: dict, smi: str, rx: dict, crit: dict) -> dict:
     }
     # kernel #6: bytes as they are; operations as the function needs them
     # (a 128-point FFT per row, 5 N log2 N, plus ~50 per sample for twiddle,
-    # demodulators and power), not as this kernel spends them (the direct
-    # product, 8*128 per sample, printed beside it)
+    # demodulators and power).  Beside it: the bytes its two launches move
+    # (the fix-up rereads and rewrites the AM and FM positions' audio), and
+    # torch.fft.ifft over the same complex rows, the transform alone: not
+    # the same function, and the port never calls it
     rows = n_out * K1
     nbytes = (bb.numel() + 2 * dm.numel() + 4 * K + 2 * 128 * 128
               + rows * 128 + K) * 4
-    direct = rows * 128 * (8 * 128 + 50)
+    am_fm = int(((consts[4] + consts[5]) > 0).sum())
+    b4 = bb.view(n_out, 2, K1, 128)
+    zc = torch.complex(b4[:, 0], b4[:, 1]).reshape(rows, 128)
+    fft_ms = cuda_ms(lambda: torch.fft.ifft(zc, dim=-1), 10)
+    del zc, b4
+    # the two CUDA launches of one call, by the profiler's device times
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            pk.pfb_demod_call(bb, dm, *consts, **kw)
+        torch.cuda.synchronize()
+    launch_ms = {name: sum(e.device_time_total for e in prof.key_averages()
+                           if f"pfb_demod_{name}" in e.key) / 5e3
+                 for name in ("chunk", "carry")}
     times["demod"] = {
         "ms": stages["stage 2 + demod (kernel #6)"],
+        "launch_ms": launch_ms,
         "plain_ms": cuda_ms(
             lambda: pk.pfb_demod_plain(bb, dm, *consts, **kw), 3, 1),
         **bound(nbytes, rows * (5 * 128 * 7 + 128 * 50)),
-        "direct_product_ms": direct / PEAK_FP32_FLOPS * 1e3}
+        "moved_mb": (nbytes + 2 * n_out * am_fm * 4) / 1e6,
+        "ifft_ms": fft_ms}
     print(f"timing of the PFB receiver [{smi}]:", flush=True)
     for label, ms in (("kernel route", k_ms), ("torch-op route", r_ms)):
         print(f"  {label}: {ms:.4f} ms/block (device events), "
@@ -1616,9 +1658,14 @@ def phase_timing_pfb(report: dict, smi: str, rx: dict, crit: dict) -> dict:
     print("  kernel-route stages (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in stages.items()), flush=True)
     for name, t in times.items():
-        extra = (f"; the direct product it runs is "
-                 f"{t['direct_product_ms']:.4f} ms at the fp32 peak"
-                 if "direct_product_ms" in t else "")
+        extra = (f"; two CUDA launches a call moving {t['moved_mb']:.1f} MB "
+                 f"= {t['moved_mb'] / PEAK_BYTES_PER_S * 1e9:.4f} ms (by the "
+                 f"profiler: chunks {t['launch_ms']['chunk']:.4f} ms, "
+                 f"carries {t['launch_ms']['carry']:.4f} ms); "
+                 f"torch.fft.ifft over the same {rows} x 128 complex rows "
+                 f"(the transform alone, not the same function, never "
+                 f"called by the port) {t['ifft_ms']:.4f} ms"
+                 if "ifft_ms" in t else "")
         print(f"  {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library none, bound {t['bound_ms']:.4f} ms by "
               f"{t['bound_by']} ({t['mbytes']:.1f} MB = {t['bytes_ms']:.4f} "

@@ -23,38 +23,76 @@
 // the call (n_out is even in the receiver, so blocks do not shift the
 // parity).
 //
-// What bounds it on an H100: by bytes 0.24 ms at the receiver's shape
-// (537 MB in, 268 MB out at 3.35 TB/s); the direct 128-point product is
-// 68.7 GFLOP of fp32 (1.03 ms at 67 TFLOP/s), and the reference's numerics
-// are f32-exact, so the tensor cores (TF32) are out.  As written the
-// kernel is limited by the FP32 FMA rate and the shared-memory reads that
-// feed it.
+// What bounds it on an H100, at the receiver's shape (K1 = 32, n_out =
+// 16384, S = 1): the bytes, 537 MB in and 268 MB out = 805.7 MB, 0.2405 ms
+// at 3.35 TB/s.  The operations the function needs are a 128-point FFT a
+// row (5 N log2 N) and ~50 a sample for twiddle, demodulators and power:
+// 5.70 GFLOP, 0.085 ms at the fp32 peak of 67 TFLOP/s.  The reference's
+// numerics are f32-exact, so the tensor cores (TF32) are out.  In issued
+// instructions the demodulators cost more than the transform: atan2f and
+// the IEEE sqrtf are ~65 instructions a sample (branches for their special
+// cases included), the FFT below ~2 a sample.
 //
-// What the design does about it.  The TPU grid walks time tiles in order
-// and carries the one-pole and FM states through scratch memory, and runs
-// the recurrences as triangular products on its matrix unit.  CUDA blocks
-// share nothing and have no order, so a block owns one c1 and 32 of its c2
-// for the whole call and walks time itself, 128 frames a tile: each of its
-// 16 warps takes 8 consecutive frames, a lane one c2.
-// - A warp reads its 8 input row pairs coalesced, twiddles and signs them
-//   and stores them to shared memory as (re, im) of two frames per float4,
-//   so that in the product every lane reads the same address (a broadcast)
-//   and gets two frames per load; the w2 columns of the block's 32
-//   channels sit in shared memory, one conflict-free 8-byte load per n2.
-//   Per n2 a thread makes 5 shared loads for 32 FMAs into 16 accumulators.
-// - The demodulators run on those accumulators in registers.  A warp gets
-//   the frame before its first from the warp before it (or from the carry)
-//   through shared memory, runs both one-poles over its 8 frames from a zero
-//   state, and publishes each one's end value and decay a^8; after a
-//   barrier every warp folds the carry through the warps before it
-//   (y = y_local + a^(k+1) * carry_in), the chunked form of the
-//   recurrence with a chunk of 8.  Two barriers per 128 frames.
-// - The power sum is a per-thread accumulator, reduced across the 16 warps
-//   once at the end; st_out is written by the thread that holds the last
-//   frame.  No atomics: the result does not depend on scheduling.
-// The 4 blocks of one c1 read the same input rows; the L2 serves the
-// repeats.  Frames past n_out in the last tile are skipped step by step, so
-// any n_out >= 1 is taken.
+// Why an FFT.  PFBRxPipeline.create builds w2[n2, c2] = W^(n2*c2) * r[c2],
+// W = e^(2 pi i/128): the unnormalised inverse DFT followed by a rotation
+// of each output column, r[c2] = w2[0, c2].  A direct 128 x 128 product
+// would cost 72.1 GFLOP (1.08 ms at the fp32 peak, 4.5x the byte bound);
+// the FFT costs 1/18 of that.  The wrapper checks that w2 has this form
+// before it launches (ops/pfb_kernels.py _stage2_rotation) and raises if
+// not.  The twiddles W^j come in a float32 table made in float64 on the
+// host, as the other constants are.
+//
+// The transform, one warp a frame.  Lane l holds n2 = 4l + i, i < 4, read
+// as one 16-byte word of each plane.  With c2 = b + 32a (b < 32, a < 4):
+//   z[b + 32a] = sum_i j^(i a) W^(i b) U_i[b],
+//   U_i[b] = sum_l c[4l + i] W^(4 l b)
+// so the warp runs four 32-point DFTs across its lanes (decimation in
+// frequency by __shfl_xor_sync, five radix-2 stages; lane l then holds bin
+// b = bitreverse5(l)), multiplies by W^(i b), runs a 4-point DFT over i in
+// registers, rotates by r and writes z over the frame's rows in shared
+// memory (each lane's 32 stores of one a hit 32 banks).
+//
+// Time split across blocks, launch (a).  The grid is (chunks of kChunk =
+// 256 frames, K1, S): 2048 blocks at the receiver's shape, of 128 threads,
+// six a SM.
+// A block owns one c1 and all 128 c2 of its chunk and walks it in tiles of
+// 16 frames.  Each warp copies the rows of its 4 frames of the next tile
+// into shared memory with cp.async while the current tile is worked on
+// (two buffers), then transforms its 4 frames in place.  After a barrier
+// thread c2 demodulates position c2 through the tile's 16 frames in order,
+// carrying z[t-1], env[t-1] and both one-poles in registers, and writes
+// each frame's audio as one coalesced 512-byte row.  The first frame of a
+// chunk after the first needs the frame before it: warp 0 transforms that
+// frame too (1/256 more reads, from the L2 mostly); chunk 0 takes it from
+// st.  The one-poles start from zero in every chunk, so launch (a) writes
+// the final audio of SSB positions and the zero-carry audio of AM and FM
+// positions, and per chunk and position the chunk's end values of both
+// one-poles from zero and its power sum into scratch (3 floats a position
+// and chunk), plus zr, zi and env of the last frame into st_out.
+//
+// Across blocks, launch (b), the same grid, 256 threads.  A block forms the
+// carries entering its chunk from st's y_dc and y_de and the scratch of the
+// chunks before it, C_k+1 = a^L_k * C_k + e_k: each of its 8 warps folds
+// one eighth of those chunks from zero, in order, and the 8 partial carries
+// are then folded in order.  It adds g_am*a_dc^(j+1)*C_dc and
+// a_de^(j+1)*C_de to the AM and FM positions of its frames j (the powers
+// formed in double); the loads of its audio are in flight before the
+// carries are known.  The last chunk's block writes y_de and y_dc of the
+// last frame into st_out and sums the power partials, the same way, into
+// spec.  No atomics, no waiting on another block: the order of every sum is
+// fixed, so the result does not depend on scheduling.  Any n_out >= 1 is
+// taken; frames past n_out are skipped and the last chunk may be short.
+//
+// Bytes this design moves at the receiver's shape: launch (a) reads the
+// 537 MB of planes once (+1/256) and writes the 268 MB of audio; launch (b)
+// reads and writes again the AM and FM half of the audio, 134 MB each way,
+// and 3 MB of scratch: ~1076 MB, 0.32 ms at 3.35 TB/s.  Both launches run
+// from one call of pfb_demod below, which alone owns the chunk rule:
+// pfb_demod_scratch_floats says how much scratch the caller allocates.
+//
+// ptxas (sm_90a, -O3): launch (a) 71 registers, 37632 bytes of shared
+// memory, no stack, no spills; launch (b) 92 registers, 14400 bytes, no
+// stack, no spills.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -62,20 +100,16 @@
 namespace {
 
 constexpr int K2 = 128;                // stage-2 length, columns of every row
-constexpr int TT = 8;                  // frames per warp and tile
-constexpr int NW = 16;                 // warps per block
-constexpr int C2B = 32;                // channels (c2) per block: one a lane
-constexpr int kThreads = NW * 32;
+constexpr int NW = 4;                  // warps per block of launch (a)
+constexpr int TT = 4;                  // frames a warp transforms a tile
+constexpr int kTile = NW * TT;         // frames per tile
+constexpr int kChunk = 256;            // frames per block of launch (a)
+constexpr int kThreads = NW * 32;      // a thread per position c2
+constexpr int kFixThreads = 256;       // threads per block of launch (b)
+constexpr int kFixWarps = kFixThreads / 32;
 constexpr int kErrBadShape = -1;
-constexpr int kMaxDevices = 64;
-
-struct Smem {
-  float2 w2[K2][C2B];                  // (w2r, w2i)[n2][c2 of this block]
-  float4 cs[NW][TT / 2][K2];           // twiddled rows, two frames a float4
-  float zlast[NW][3][C2B];             // zr, zi, env of a warp's last frame
-  float pole[NW][4][C2B];              // e_dc, f_dc, e_de, f_de of a warp
-  float pw[NW][C2B];                   // power partial sums
-};
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kThreads == K2, "launch (a) demodulates a position a thread");
 
 struct Params {
   const float* bb;
@@ -86,223 +120,427 @@ struct Params {
   const float* w2i;
   const float* am;
   const float* fm;
+  const float* tab;                    // [2][128]: cos, sin of 2 pi j/128
   float* audio;
   float* spec;
   float* st_out;
-  int n_out, K1;
+  float* scratch;                      // [S][chunks][e_dc, e_de, power][K1*K2]
+  int n_out, K1, n_chunks;
   float g_ssb, g_am, bg_fm, a_dc, a_de;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) pfb_demod_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int c1 = blockIdx.y;
-  const int c2 = blockIdx.x * C2B + lane;
-  const int s = blockIdx.z;
-  const int K1 = p.K1, n_out = p.n_out;
-  const size_t plane = (size_t)K1 * K2;          // one st / spec row group
+// A frame's slot: its rows (re, im) as copied in, lane l's word at [p][l]
+// (n2 = 4l..4l+3); after the transform, as floats, zr[c2] then zi[c2].
+struct Frame {
+  float4 row[2][32];
+};
 
-  for (int i = threadIdx.x; i < K2 * C2B; i += kThreads) {
-    const int n2 = i / C2B, l = i % C2B;
-    const int src = n2 * K2 + blockIdx.x * C2B + l;
-    sm.w2[n2][l] = make_float2(p.w2r[src], p.w2i[src]);
-  }
-  float tr[4], ti[4];                  // twiddles of n2 = lane + 32*i
+struct Smem {
+  Frame buf[2][kTile];                 // two tiles
+  Frame pre;                           // the frame before the chunk
+  float4 twr[32], twi[32];             // tw[c1, 4l + i], i = x..w
+  float2 wst[4][32];                   // stage twiddles, h = 16, 8, 4, 2
+  float2 wstep[3][32];                 // W^(i b), i = 1..3
+  float2 rot[4][32];                   // r[b + 32a]
+};
+
+__device__ __forceinline__ void unpack(float4 q, float v[4]) {
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {   // all but the newest
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float2 twiddle(const float* tab, int j) {
+  return make_float2(__ldg(tab + j), __ldg(tab + K2 + j));
+}
+
+__device__ __forceinline__ float frame_sign(int t, int c1) {
+  return ((t & 1) && (c1 & 1)) ? -1.f : 1.f;
+}
+
+// The rotated, signed 128-point IDFT of one frame, in place: every lane of
+// the warp takes part.
+__device__ __forceinline__ void stage2(const Smem& sm, int lane, Frame& f,
+                                       float sg) {
+  float r4[4], i4[4], tr[4], ti[4], xr[4], xi[4];
+  unpack(f.row[0][lane], r4);
+  unpack(f.row[1][lane], i4);
+  unpack(sm.twr[lane], tr);
+  unpack(sm.twi[lane], ti);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    tr[i] = p.twr[c1 * K2 + lane + 32 * i];
-    ti[i] = p.twi[c1 * K2 + lane + 32 * i];
+    xr[i] = r4[i] * tr[i] - i4[i] * ti[i];
+    xi[i] = r4[i] * ti[i] + i4[i] * tr[i];
   }
-  const int pos = c1 * K2 + c2;
-  const float is_am = p.am[pos], is_fm = p.fm[pos];
-  const float* st = p.st + (size_t)s * 5 * plane + pos;
-  float cz_r = st[0], cz_i = st[plane], cy_de = st[2 * plane];
-  float c_env = st[3 * plane], cy_dc = st[4 * plane];
-  const float sgn_odd = (c1 & 1) ? -1.f : 1.f;   // sign of odd frames
-  const float* bb = p.bb + (size_t)s * n_out * 2 * plane + (size_t)c1 * K2;
-  float* audio = p.audio + (size_t)s * n_out * plane + pos;
-  float* st_out = p.st_out + (size_t)s * 5 * plane + pos;
-  float power = 0.f;
-  __syncthreads();
-
-  for (int tb = 0; tb < n_out; tb += NW * TT) {
-    const int t0 = tb + w * TT;
-    const int nv = max(0, min(TT, n_out - t0));  // frames of this warp
-    float zr[TT], zi[TT], env[TT];
+  // 32-point DFTs across the lanes, decimation in frequency: the low lane
+  // of a pair keeps x + y, the high one (y - x) * W_2h^(l mod h)
 #pragma unroll
-    for (int k = 0; k < TT; ++k) zr[k] = zi[k] = env[k] = 0.f;
-
-    if (nv > 0) {
-      // twiddled, signed input rows -> shared memory
+  for (int s = 0; s < 5; ++s) {
+    const int h = 16 >> s;
+    const float sgn = (lane & h) ? -1.f : 1.f;
 #pragma unroll
-      for (int tp = 0; tp < TT / 2; ++tp) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int n2 = lane + 32 * i;
-          float c[4];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int k = 2 * tp + h;
-            float br = 0.f, bi = 0.f;
-            if (k < nv) {
-              const float* row = bb + (size_t)(t0 + k) * 2 * plane + n2;
-              br = row[0];
-              bi = row[plane];
-            }
-            const float sg = ((t0 + k) & 1) ? sgn_odd : 1.f;
-            c[2 * h] = (br * tr[i] - bi * ti[i]) * sg;
-            c[2 * h + 1] = (br * ti[i] + bi * tr[i]) * sg;
-          }
-          sm.cs[w][tp][n2] = make_float4(c[0], c[1], c[2], c[3]);
-        }
-      }
-      __syncwarp();
-      // z[k] = sum_n2 c[k][n2] * w2[n2][c2]
-#pragma unroll 4
-      for (int n2 = 0; n2 < K2; ++n2) {
-        const float2 wv = sm.w2[n2][lane];
-#pragma unroll
-        for (int tp = 0; tp < TT / 2; ++tp) {
-          const float4 c = sm.cs[w][tp][n2];
-          zr[2 * tp] = fmaf(c.x, wv.x, fmaf(-c.y, wv.y, zr[2 * tp]));
-          zi[2 * tp] = fmaf(c.x, wv.y, fmaf(c.y, wv.x, zi[2 * tp]));
-          zr[2 * tp + 1] = fmaf(c.z, wv.x, fmaf(-c.w, wv.y, zr[2 * tp + 1]));
-          zi[2 * tp + 1] = fmaf(c.z, wv.y, fmaf(c.w, wv.x, zi[2 * tp + 1]));
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int k = 0; k < TT; ++k) {
-        if (k < nv) {
-          const float m2 = zr[k] * zr[k] + zi[k] * zi[k];
-          env[k] = sqrtf(m2);
-          power += m2;
-          if (k == nv - 1) {
-            sm.zlast[w][0][lane] = zr[k];
-            sm.zlast[w][1][lane] = zi[k];
-            sm.zlast[w][2][lane] = env[k];
-          }
-        }
-      }
+    for (int i = 0; i < 4; ++i) {
+      const float pr = __shfl_xor_sync(kFull, xr[i], h);
+      const float pi = __shfl_xor_sync(kFull, xi[i], h);
+      xr[i] = fmaf(sgn, xr[i], pr);
+      xi[i] = fmaf(sgn, xi[i], pi);
     }
-    __syncthreads();
-
-    // the frame before this warp's first; the carry out of this tile
-    float pr = cz_r, pi = cz_i, pe = c_env;
-    if (w > 0) {
-      pr = sm.zlast[w - 1][0][lane];
-      pi = sm.zlast[w - 1][1][lane];
-      pe = sm.zlast[w - 1][2][lane];
-    }
-    if (tb + NW * TT < n_out) {        // a next tile: this one is full
-      cz_r = sm.zlast[NW - 1][0][lane];
-      cz_i = sm.zlast[NW - 1][1][lane];
-      c_env = sm.zlast[NW - 1][2][lane];
-    }
-    // both one-poles over the warp's frames from a zero state
-    float ydc[TT], yde[TT], fdc[TT], fde[TT];
-    float e_dc = 0.f, f_dc = 1.f, e_de = 0.f, f_de = 1.f;
+    if (s < 4) {
+      const float2 w = sm.wst[s][lane];
 #pragma unroll
-    for (int k = 0; k < TT; ++k) {
-      if (k < nv) {
-        const float dr = zr[k] * pr + zi[k] * pi;
-        const float di = zi[k] * pr - zr[k] * pi;
-        const float disc = (dr * dr + di * di > 1e-24f) ? atan2f(di, dr) : 0.f;
-        e_de = fmaf(p.a_de, e_de, p.bg_fm * disc);
-        e_dc = fmaf(p.a_dc, e_dc, env[k] - pe);
-        f_de *= p.a_de;
-        f_dc *= p.a_dc;
-        pr = zr[k];
-        pi = zi[k];
-        pe = env[k];
-      }
-      yde[k] = e_de;
-      ydc[k] = e_dc;
-      fde[k] = f_de;
-      fdc[k] = f_dc;
-    }
-    sm.pole[w][0][lane] = e_dc;
-    sm.pole[w][1][lane] = f_dc;
-    sm.pole[w][2][lane] = e_de;
-    sm.pole[w][3][lane] = f_de;
-    __syncthreads();
-
-    // fold the carry through the warps before this one, and on to the end
-    float in_dc = cy_dc, in_de = cy_de;
-#pragma unroll
-    for (int v = 0; v < NW; ++v) {
-      if (v == w) {
-        in_dc = cy_dc;
-        in_de = cy_de;
-      }
-      cy_dc = fmaf(sm.pole[v][1][lane], cy_dc, sm.pole[v][0][lane]);
-      cy_de = fmaf(sm.pole[v][3][lane], cy_de, sm.pole[v][2][lane]);
-    }
-#pragma unroll
-    for (int k = 0; k < TT; ++k) {
-      if (k < nv) {
-        const int t = t0 + k;
-        const float y_dc = fmaf(fdc[k], in_dc, ydc[k]);
-        const float y_de = fmaf(fde[k], in_de, yde[k]);
-        const float a_ssb = p.g_ssb * zr[k];
-        const float a_am = p.g_am * y_dc;
-        audio[(size_t)t * plane] =
-            a_ssb + is_am * (a_am - a_ssb) + is_fm * (y_de - a_ssb);
-        if (t == n_out - 1) {
-          st_out[0] = zr[k];
-          st_out[plane] = zi[k];
-          st_out[2 * plane] = y_de;
-          st_out[3 * plane] = env[k];
-          st_out[4 * plane] = y_dc;
-        }
+      for (int i = 0; i < 4; ++i) {
+        const float u = xr[i];
+        xr[i] = u * w.x - xi[i] * w.y;
+        xi[i] = u * w.y + xi[i] * w.x;
       }
     }
   }
-
-  sm.pw[w][lane] = power;
-  __syncthreads();
-  if (w == 0) {
-    float tot = 0.f;
 #pragma unroll
-    for (int v = 0; v < NW; ++v) tot += sm.pw[v][lane];
-    p.spec[(size_t)s * plane + pos] = tot;
+  for (int i = 1; i < 4; ++i) {
+    const float2 w = sm.wstep[i - 1][lane];
+    const float u = xr[i];
+    xr[i] = u * w.x - xi[i] * w.y;
+    xi[i] = u * w.y + xi[i] * w.x;
+  }
+  // 4-point DFTs over i: X_a = sum_i j^(i a) x_i
+  const float s02r = xr[0] + xr[2], s02i = xi[0] + xi[2];
+  const float d02r = xr[0] - xr[2], d02i = xi[0] - xi[2];
+  const float s13r = xr[1] + xr[3], s13i = xi[1] + xi[3];
+  const float d13r = xr[1] - xr[3], d13i = xi[1] - xi[3];
+  const float Xr[4] = {s02r + s13r, d02r - d13i, s02r - s13r, d02r + d13i};
+  const float Xi[4] = {s02i + s13i, d02i + d13r, s02i - s13i, d02i - d13r};
+  const int b = __brev(lane) >> 27;
+  float* z = reinterpret_cast<float*>(&f);
+  __syncwarp();                        // every lane has read its rows
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float2 r = sm.rot[a][lane];
+    z[b + 32 * a] = sg * (Xr[a] * r.x - Xi[a] * r.y);
+    z[K2 + b + 32 * a] = sg * (Xr[a] * r.y + Xi[a] * r.x);
   }
 }
 
+// Launch (a): one chunk of one c1 and stream per block.
+__global__ void __launch_bounds__(kThreads, 6) pfb_demod_chunk(Params p) {
+  __shared__ Smem sm;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int pos = threadIdx.x;         // the position c2 this thread demods
+  const int k = blockIdx.x, c1 = blockIdx.y, s = blockIdx.z;
+  const int K1 = p.K1, n_out = p.n_out;
+  const size_t plane = (size_t)K1 * K2;          // one st / spec row group
+  const float* bb = p.bb + (size_t)s * n_out * 2 * plane + (size_t)c1 * K2;
+  const int t_begin = k * kChunk;
+  const int t_end = min(n_out, t_begin + kChunk);
+
+  // a warp copies the rows of its frames of a tile (and warp 0 in the
+  // first tile of a later chunk the frame before the chunk) into shared
+  // memory; each lane reads back only its own words before the transform
+  auto prefetch = [&](int tb, int buf) {
+#pragma unroll
+    for (int kk = 0; kk < TT; ++kk) {
+      const int t = tb + w * TT + kk;
+      if (t < t_end) {
+        const float4* row =
+            reinterpret_cast<const float4*>(bb + (size_t)t * 2 * plane);
+        Frame& f = sm.buf[buf][w * TT + kk];
+        cp_async16(&f.row[0][lane], row + lane);
+        cp_async16(&f.row[1][lane], row + plane / 4 + lane);
+      }
+    }
+    if (tb == t_begin && k > 0 && w == 0) {
+      const float4* row = reinterpret_cast<const float4*>(
+          bb + (size_t)(t_begin - 1) * 2 * plane);
+      cp_async16(&sm.pre.row[0][lane], row + lane);
+      cp_async16(&sm.pre.row[1][lane], row + plane / 4 + lane);
+    }
+    cp_async_commit();
+  };
+  prefetch(t_begin, 0);
+
+  if (w == 0) {
+    sm.twr[lane] = __ldg(reinterpret_cast<const float4*>(p.twr + c1 * K2) +
+                         lane);
+    sm.twi[lane] = __ldg(reinterpret_cast<const float4*>(p.twi + c1 * K2) +
+                         lane);
+  } else if (w == 1) {
+#pragma unroll
+    for (int s2 = 0; s2 < 4; ++s2) {
+      const int h = 16 >> s2;
+      sm.wst[s2][lane] = (lane & h)
+                             ? twiddle(p.tab, (lane & (h - 1)) * (64 / h))
+                             : make_float2(1.f, 0.f);
+    }
+  } else if (w == 2) {
+    const int b = __brev(lane) >> 27;
+#pragma unroll
+    for (int i = 1; i < 4; ++i) sm.wstep[i - 1][lane] = twiddle(p.tab, i * b);
+  } else {
+    const int b = __brev(lane) >> 27;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      sm.rot[a][lane] =
+          make_float2(__ldg(p.w2r + b + 32 * a), __ldg(p.w2i + b + 32 * a));
+  }
+  const float is_am = __ldg(p.am + c1 * K2 + pos);
+  const float is_fm = __ldg(p.fm + c1 * K2 + pos);
+  const float g_ssb = p.g_ssb, g_am = p.g_am, bg_fm = p.bg_fm;
+  const float a_dc = p.a_dc, a_de = p.a_de;
+  float* audio = p.audio + (size_t)s * n_out * plane + (size_t)c1 * K2 + pos;
+  float* st_out = p.st_out + (size_t)s * 5 * plane + (size_t)c1 * K2 + pos;
+  // the frame before the chunk: from st in chunk 0, else transformed below
+  float pzr = 0.f, pzi = 0.f, penv = 0.f;
+  if (k == 0) {
+    const float* st = p.st + (size_t)s * 5 * plane + (size_t)c1 * K2 + pos;
+    pzr = st[0];
+    pzi = st[plane];
+    penv = st[3 * plane];
+  }
+  float y_dc = 0.f, y_de = 0.f, power = 0.f;
+  __syncthreads();
+
+  int cur = 0;
+  for (int tb = t_begin; tb < t_end; tb += kTile, cur ^= 1) {
+    prefetch(tb + kTile, cur ^ 1);     // flies while this tile is worked on
+    cp_async_wait_one();
+    __syncwarp();
+    // frames past t_end hold stale rows: transformed, never read
+#pragma unroll
+    for (int kk = 0; kk < TT; ++kk) {
+      const int t = tb + w * TT + kk;
+      stage2(sm, lane, sm.buf[cur][w * TT + kk], frame_sign(t, c1));
+    }
+    if (tb == t_begin && k > 0 && w == 0)
+      stage2(sm, lane, sm.pre, frame_sign(t_begin - 1, c1));
+    __syncthreads();
+
+    if (tb == t_begin && k > 0) {
+      const float* z = reinterpret_cast<const float*>(&sm.pre);
+      pzr = z[pos];
+      pzi = z[K2 + pos];
+      penv = sqrtf(pzr * pzr + pzi * pzi);
+    }
+    const int nf = min(kTile, t_end - tb);
+#pragma unroll 4
+    for (int f = 0; f < nf; ++f) {
+      const float* z = reinterpret_cast<const float*>(&sm.buf[cur][f]);
+      const float zr = z[pos], zi = z[K2 + pos];
+      const float m2 = zr * zr + zi * zi;
+      const float env = sqrtf(m2);
+      power += m2;
+      const float dr = zr * pzr + zi * pzi;
+      const float di = zi * pzr - zr * pzi;
+      const float disc = (dr * dr + di * di > 1e-24f) ? atan2f(di, dr) : 0.f;
+      y_de = fmaf(a_de, y_de, bg_fm * disc);
+      y_dc = fmaf(a_dc, y_dc, env - penv);
+      const float a_ssb = g_ssb * zr;
+      const int t = tb + f;
+      audio[(size_t)t * plane] = a_ssb + is_am * (g_am * y_dc - a_ssb) +
+                                 is_fm * (y_de - a_ssb);
+      if (t == n_out - 1) {
+        st_out[0] = zr;
+        st_out[plane] = zi;
+        st_out[3 * plane] = env;
+      }
+      pzr = zr;
+      pzi = zi;
+      penv = env;
+    }
+    __syncthreads();                   // the tile is read: its buffer is free
+  }
+
+  // the chunk's one-pole ends from zero and its power, for launch (b)
+  float* sc = p.scratch + (size_t)(s * p.n_chunks + k) * 3 * plane +
+              (size_t)c1 * K2 + pos;
+  sc[0] = y_dc;
+  sc[plane] = y_de;
+  sc[2 * plane] = power;
+}
+
+// a^n in double, by squaring
+__device__ __forceinline__ float pow_n(float a, int n) {
+  double r = 1.0, x = a;
+  while (n) {
+    if (n & 1) r *= x;
+    x *= x;
+    n >>= 1;
+  }
+  return (float)r;
+}
+
+__device__ __forceinline__ float4 ld4(const float* q) {
+  return *reinterpret_cast<const float4*>(q);
+}
+
+__device__ __forceinline__ void st4(float* q, float4 v) {
+  *reinterpret_cast<float4*>(q) = v;
+}
+
+__device__ __forceinline__ float4 fma4(float d, float4 c, float4 e) {
+  return make_float4(fmaf(d, c.x, e.x), fmaf(d, c.y, e.y), fmaf(d, c.z, e.z),
+                     fmaf(d, c.w, e.w));
+}
+
+__device__ __forceinline__ float4 add4(float4 c, float4 e) {
+  return make_float4(c.x + e.x, c.y + e.y, c.z + e.z, c.w + e.w);
+}
+
+// Launch (b): the carries entering each chunk, the AM / FM fix-up, spec and
+// the one-pole rows of st_out.  A lane owns 4 consecutive positions.
+__global__ void __launch_bounds__(kFixThreads) pfb_demod_carry(Params p) {
+  __shared__ float pdc[kChunk], pde[kChunk];     // a^(j+1)
+  __shared__ float4 part[kFixWarps][3][32];       // partial carries, power
+  __shared__ float2 pdec[kFixWarps];              // their decays
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x >> 5;
+  const int k = blockIdx.x, c1 = blockIdx.y, s = blockIdx.z;
+  const int K1 = p.K1, n_out = p.n_out, nch = p.n_chunks;
+  const size_t plane = (size_t)K1 * K2;
+  const int t_begin = k * kChunk;
+  const int nf = min(kChunk, n_out - t_begin);
+  const size_t pos = (size_t)c1 * K2 + 4 * lane;
+  const float* sc = p.scratch + (size_t)s * nch * 3 * plane + pos;
+  const float4 am = ld4(p.am + pos), fm = ld4(p.fm + pos);
+  // SSB positions are final
+  const bool fix = am.x != 0.f || am.y != 0.f || am.z != 0.f ||
+                   am.w != 0.f || fm.x != 0.f || fm.y != 0.f ||
+                   fm.z != 0.f || fm.w != 0.f;
+  float* audio = p.audio + ((size_t)s * n_out + t_begin) * plane + pos;
+  constexpr int kUnroll = 8;
+  float4 v[kUnroll];                   // a group of frames, loads in flight
+  auto load = [&](int j0) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kFixWarps;
+      if (j < nf) v[u] = ld4(audio + (size_t)j * plane);
+    }
+  };
+  if (fix) load(g);                    // before the carries are known
+
+  for (int j = threadIdx.x; j < kChunk; j += kFixThreads) {
+    pdc[j] = pow_n(p.a_dc, j + 1);
+    pde[j] = pow_n(p.a_de, j + 1);
+  }
+  // warp g folds chunks [lo, hi) of those before this one from zero
+  {
+    const int lo = k * g / kFixWarps, hi = k * (g + 1) / kFixWarps;
+    const float ddc = pow_n(p.a_dc, kChunk), dde = pow_n(p.a_de, kChunk);
+    float4 cdc = make_float4(0.f, 0.f, 0.f, 0.f), cde = cdc;
+#pragma unroll 4
+    for (int j = lo; j < hi; ++j) {
+      cdc = fma4(ddc, cdc, ld4(sc + (size_t)j * 3 * plane));
+      cde = fma4(dde, cde, ld4(sc + ((size_t)j * 3 + 1) * plane));
+    }
+    part[g][0][lane] = cdc;
+    part[g][1][lane] = cde;
+    if (lane == 0)
+      pdec[g] = make_float2(pow_n(p.a_dc, kChunk * (hi - lo)),
+                            pow_n(p.a_de, kChunk * (hi - lo)));
+  }
+  // and in the last chunk's block, the power of chunks [lo, hi) of all
+  if (k == nch - 1) {
+    const int lo = nch * g / kFixWarps, hi = nch * (g + 1) / kFixWarps;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int j = lo; j < hi; ++j)
+      acc = add4(acc, ld4(sc + ((size_t)j * 3 + 2) * plane));
+    part[g][2][lane] = acc;
+  }
+  __syncthreads();
+
+  float4 cdc = ld4(p.st + (size_t)s * 5 * plane + 4 * plane + pos);
+  float4 cde = ld4(p.st + (size_t)s * 5 * plane + 2 * plane + pos);
+#pragma unroll
+  for (int u = 0; u < kFixWarps; ++u) {
+    cdc = fma4(pdec[u].x, cdc, part[u][0][lane]);
+    cde = fma4(pdec[u].y, cde, part[u][1][lane]);
+  }
+  if (k == nch - 1 && g == 0) {
+    float* so = p.st_out + (size_t)s * 5 * plane + pos;
+    st4(so + 4 * plane, fma4(pow_n(p.a_dc, nf), cdc,
+                             ld4(sc + (size_t)k * 3 * plane)));
+    st4(so + 2 * plane, fma4(pow_n(p.a_de, nf), cde,
+                             ld4(sc + ((size_t)k * 3 + 1) * plane)));
+    float4 acc = part[0][2][lane];
+#pragma unroll
+    for (int u = 1; u < kFixWarps; ++u) acc = add4(acc, part[u][2][lane]);
+    st4(p.spec + (size_t)s * plane + pos, acc);
+  }
+  if (!fix) return;
+  const float4 gdc = make_float4(p.g_am * am.x * cdc.x, p.g_am * am.y * cdc.y,
+                                 p.g_am * am.z * cdc.z, p.g_am * am.w * cdc.w);
+  const float4 gde = make_float4(fm.x * cde.x, fm.y * cde.y, fm.z * cde.z,
+                                 fm.w * cde.w);
+  for (int j0 = g; j0 < nf; j0 += kFixWarps * kUnroll) {
+    if (j0 > g) load(j0);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * kFixWarps;
+      if (j < nf) {
+        const float fd = pdc[j], fe = pde[j];
+        st4(audio + (size_t)j * plane,
+            make_float4(fmaf(fd, gdc.x, fmaf(fe, gde.x, v[u].x)),
+                        fmaf(fd, gdc.y, fmaf(fe, gde.y, v[u].y)),
+                        fmaf(fd, gdc.z, fmaf(fe, gde.z, v[u].z)),
+                        fmaf(fd, gdc.w, fmaf(fe, gde.w, v[u].w))));
+      }
+    }
+  }
+}
+
+int n_chunks(int n_out) { return (n_out + kChunk - 1) / kChunk; }
+
 }  // namespace
 
-// bb [S, n_out*2*K1, 128], st and st_out [S, 5*K1, 128], twr/twi/am/fm
-// [K1, 128], w2r/w2i [128, 128], audio [S, n_out*K1, 128], spec [S, K1, 128],
-// all float32 and contiguous; bg_fm = float32(b_de * g_fm).
-extern "C" int pfb_demod(const void* bb, const void* st, const void* twr,
-                         const void* twi, const void* w2r, const void* w2i,
-                         const void* am, const void* fm, void* audio,
-                         void* spec, void* st_out, int S, int n_out, int K1,
-                         float g_ssb, float g_am, float bg_fm, float a_dc,
-                         float a_de, void* stream) {
-  static bool attr_set[kMaxDevices];
+// Floats of scratch that pfb_demod needs for these sizes, or -1 for sizes
+// outside its grid.
+extern "C" long long pfb_demod_scratch_floats(int S, int n_out, int K1) {
   if (S < 1 || S > 65535 || n_out < 1 || K1 < 1 || K1 > 65535)
     return kErrBadShape;
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(pfb_demod_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)sizeof(Smem));
-    if (err != cudaSuccess) return (int)err;
-    attr_set[dev] = true;
-  }
+  return (long long)S * n_chunks(n_out) * 3 * K1 * K2;
+}
+
+// bb [S, n_out*2*K1, 128], st and st_out [S, 5*K1, 128], twr/twi/am/fm
+// [K1, 128], w2r/w2i [128, 128] of the form W^(n2*c2) * r[c2], tab [2, 128]
+// (cos, sin of 2 pi j/128), audio [S, n_out*K1, 128], spec [S, K1, 128],
+// scratch of pfb_demod_scratch_floats(S, n_out, K1) floats, all float32 and
+// contiguous, bb, st, twr, twi, am, fm, audio, spec, st_out and scratch
+// 16-byte aligned; bg_fm = float32(b_de * g_fm).  Launches (a) and (b) on
+// the stream.
+extern "C" int pfb_demod(const void* bb, const void* st, const void* twr,
+                         const void* twi, const void* w2r, const void* w2i,
+                         const void* am, const void* fm, const void* tab,
+                         void* audio, void* spec, void* st_out, void* scratch,
+                         int S, int n_out, int K1, float g_ssb, float g_am,
+                         float bg_fm, float a_dc, float a_de, void* stream) {
+  if (pfb_demod_scratch_floats(S, n_out, K1) < 0) return kErrBadShape;
   Params p{(const float*)bb,  (const float*)st,  (const float*)twr,
            (const float*)twi, (const float*)w2r, (const float*)w2i,
-           (const float*)am,  (const float*)fm,  (float*)audio,
-           (float*)spec,      (float*)st_out,    n_out,
-           K1,                g_ssb,             g_am,
+           (const float*)am,  (const float*)fm,  (const float*)tab,
+           (float*)audio,     (float*)spec,      (float*)st_out,
+           (float*)scratch,   n_out,             K1,
+           n_chunks(n_out),   g_ssb,             g_am,
            bg_fm,             a_dc,              a_de};
-  const dim3 grid(K2 / C2B, K1, S);
-  pfb_demod_kernel<<<grid, kThreads, sizeof(Smem), (cudaStream_t)stream>>>(p);
+  const dim3 grid(n_chunks(n_out), K1, S);
+  pfb_demod_chunk<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pfb_demod_carry<<<grid, kFixThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -28,13 +28,17 @@ Differences of interface from the TPU kernels, none of result:
   ``a_dc``, ``a_de`` themselves: it runs the recurrences as recurrences,
   so the triangular matrices and decay columns of the TPU kernel
   (``tdc``, ``tde``, ``dec``) and the Karatsuba sum ``w2s`` have no
-  counterpart, and there is no time-tile parameter ``TT``.
+  counterpart, and there is no time-tile parameter ``TT``.  It computes
+  stage 2 as a 128-point FFT followed by the rotation ``r = w2[0]``, so on
+  the card ``w2`` must be the inverse DFT times ``diag(r)``, as
+  ``PFBRxPipeline.create`` builds it (:func:`_stage2_rotation` checks).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -60,12 +64,17 @@ def _poly_launchers():
 
 
 @functools.cache
-def _demod_launcher():
-    fn = _kernels.load("pfb_demod").pfb_demod
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+def _demod_launchers():
+    """(scratch-size query, launcher) of ``csrc/pfb_demod.cu``."""
+    lib = _kernels.load("pfb_demod")
+    scratch = lib.pfb_demod_scratch_floats
+    scratch.argtypes = [ctypes.c_int] * 3
+    scratch.restype = ctypes.c_longlong
+    fn = lib.pfb_demod
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 3
                    + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    return scratch, fn
 
 
 def _run(ref: torch.Tensor, name: str, fn, *args) -> None:
@@ -241,6 +250,47 @@ def pfb_demod_plain(bb, st, twr, twi, w2r, w2i, am, fm, *, g_ssb: float,
     return audio.reshape(S, n_out * K1, K2), spec, st_out
 
 
+@functools.cache
+def _fft_twiddles(device: torch.device) -> torch.Tensor:
+    """The demod kernel's twiddle table [2, K2] float32: cos and sin of
+    2 pi j / K2, made in float64."""
+    ang = 2 * np.pi * np.arange(K2) / K2
+    return torch.as_tensor(np.stack([np.cos(ang), np.sin(ang)]).astype(
+        np.float32), device=device)
+
+
+_ROTATIONS: dict = {}             # (ptr, version) pairs -> (refs, r)
+_W2_RTOL = 8 * float(np.finfo(np.float32).eps)
+
+
+def _stage2_rotation(w2r: torch.Tensor, w2i: torch.Tensor) -> np.ndarray:
+    """The rotation ``r`` [K2] complex128 of a stage-2 basis of the form
+    ``w2[n2, c2] = e^{2 pi i n2 c2 / K2} * r[c2]``, the form the demod
+    kernel computes as a 128-point FFT (``r`` is row 0).  Raises ValueError
+    if ``w2r + i*w2i`` is not of that form within float32 rounding
+    (8 eps of the largest |r|).  Reads ``w2`` to the host once per tensor
+    pair and version, so a call with the same constants does not
+    synchronise."""
+    key = (w2r.data_ptr(), w2r._version, w2i.data_ptr(), w2i._version)
+    hit = _ROTATIONS.get(key)
+    if hit is not None and hit[0]() is w2r and hit[1]() is w2i:
+        return hit[2]
+    W = (w2r.detach().cpu().double().numpy()
+         + 1j * w2i.detach().cpu().double().numpy())
+    r = W[0].copy()
+    n = np.arange(K2)
+    dft = np.exp(2j * np.pi * (np.outer(n, n) % K2) / K2)     # [n2, c2]
+    err = float(np.abs(W - dft * r[None, :]).max())
+    if not err <= _W2_RTOL * max(1.0, float(np.abs(r).max())):
+        raise ValueError(f"w2 is not the {K2}-point inverse DFT times a "
+                         f"rotation of its columns (max deviation {err:.3g})"
+                         f": the demod kernel computes stage 2 as an FFT")
+    if len(_ROTATIONS) > 64:
+        _ROTATIONS.clear()
+    _ROTATIONS[key] = (weakref.ref(w2r), weakref.ref(w2i), r)
+    return r
+
+
 def pfb_demod_call(bb, st, twr, twi, w2r, w2i, am, fm, *, g_ssb: float,
                    g_am: float, g_fm: float, a_dc: float, a_de: float,
                    b_de: float):
@@ -255,20 +305,35 @@ def pfb_demod_call(bb, st, twr, twi, w2r, w2i, am, fm, *, g_ssb: float,
     Returns (audio [S, n_out*K1, K2], spec [S, K1, K2] — the power SUM over
     time — and st' [S, 5*K1, K2]).  The (-1)^(t*c1) hop parity counts t
     within the call.  Launches the CUDA kernel for CUDA tensors
-    (``pfb_demod_call.launches``); CPU tensors take the plain version."""
+    (``pfb_demod_call.launches``: one per call, though the kernel runs as
+    two CUDA launches, the chunks and then the carries across them); there
+    ``w2`` must be of the form :func:`_stage2_rotation` checks and bb, st,
+    twr, twi, am and fm 16-byte aligned.  CPU tensors take the plain
+    version, for any ``w2``."""
     S, n_out, K1 = _demod_check(bb, st, twr, twi, w2r, w2i, am, fm)
     kw = dict(g_ssb=g_ssb, g_am=g_am, g_fm=g_fm, a_dc=a_dc, a_de=a_de,
               b_de=b_de)
     if bb.device.type == "cpu":
         return pfb_demod_plain(bb, st, twr, twi, w2r, w2i, am, fm, **kw)
+    _stage2_rotation(w2r, w2i)
+    for name, t in (("bb", bb), ("st", st), ("twr", twr), ("twi", twi),
+                    ("am", am), ("fm", fm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    scratch_floats, launch = _demod_launchers()
+    n_scratch = scratch_floats(S, n_out, K1)
+    if n_scratch == _ERR_BAD_SHAPE:
+        raise ValueError("pfb_demod: shape outside the kernel's grid limits")
     f32 = dict(dtype=torch.float32, device=bb.device)
     audio = torch.empty((S, n_out * K1, K2), **f32)
     spec = torch.empty((S, K1, K2), **f32)
     st_out = torch.empty((S, 5 * K1, K2), **f32)
-    _run(bb, "pfb_demod", _demod_launcher(), bb.data_ptr(), st.data_ptr(),
+    scratch = torch.empty(n_scratch, **f32)
+    _run(bb, "pfb_demod", launch, bb.data_ptr(), st.data_ptr(),
          twr.data_ptr(), twi.data_ptr(), w2r.data_ptr(), w2i.data_ptr(),
-         am.data_ptr(), fm.data_ptr(), audio.data_ptr(), spec.data_ptr(),
-         st_out.data_ptr(), S, n_out, K1, g_ssb, g_am,
+         am.data_ptr(), fm.data_ptr(), _fft_twiddles(bb.device).data_ptr(),
+         audio.data_ptr(), spec.data_ptr(), st_out.data_ptr(),
+         scratch.data_ptr(), S, n_out, K1, g_ssb, g_am,
          float(np.float32(b_de * g_fm)), a_dc, a_de)
     pfb_demod_call.launches += 1
     return audio, spec, st_out
