@@ -21,7 +21,12 @@ channelizer beside it.  Phases, each fatal on failure:
    quisk_tpu_torch/csrc/ (one nvcc each, started together);
 2. the fused tune+decimate kernel at a small half-band shape whose tile
    N does not fill (>= 100 dB against the float64 reference; taps too
-   long for shared memory must raise), then at the flagship shape
+   long for shared memory must raise), at the ragged edges of its
+   register-blocked tile (N = 1, N one more than a multiple of the outputs
+   a thread R, N one less than a block's outputs O, T = 1, T < d, T a
+   whole number of taps a phase, d = 1, two channels with different
+   words: each >= 100 dB against float64, within 1e-4 of the peak of the
+   plain version, one launch each), then at the flagship shape
    (C=1024, B=40960, T=1421, d=20) over 2 streamed blocks: >= 100 dB
    against the float64 reference, max abs difference to the plain
    PyTorch version within 1e-4 of the output's peak;
@@ -31,8 +36,12 @@ channelizer beside it.  Phases, each fatal on failure:
    block, and channels 0-7 equal (> 90 dB from block 2 on, FM by RMS)
    to the same chain run on the CPU;
 4. timing with CUDA events after warm-up: ms per block, input Msps, the
-   real-time factor, per-stage times, and per kernel its ms, the plain
-   version's ms, the bound and a one-call PyTorch yardstick;
+   real-time factor, per-stage times, the device idle share of 10 steps
+   traced by torch.profiler (1 - busy/span, busy the union of kernel and
+   copy intervals; and 1 - busy/untraced step, without the profiler's
+   host cost) with the front kernel's share of busy time, and per
+   kernel its ms, the plain version's ms, the bound and a one-call
+   PyTorch yardstick;
 5. the front kernel's gained and NB-detect modes at a small half-band
    shape (C=8, T=45, d=2, a block whose tile is not filled, kwidth 97) and
    at the flagship shape (avg_win 64, kwidth 961) over 3 streamed blocks
@@ -64,8 +73,9 @@ channelizer beside it.  Phases, each fatal on failure:
    in phase 2, and timed with its plain version, yardstick and bound;
 8. the flagship with agc_profile="wcp" for 2 blocks against the CPU chain
    on channels 0-7, with its time per block (a per-sample loop);
-9. timing of the featured and NFM steps, the featured stages, and the
-   gained and NB-detect kernels with their plain versions and bounds;
+9. timing of the featured and NFM steps with their idle shares, the
+   featured stages, and the gained and NB-detect kernels with their plain
+   versions and bounds;
 10. the featured RxChain with front_cond=True, dc_remove_bw=300 (the
     one-pole DC blocker), a trim set and a DC offset on the input, for 5
     blocks: one NB-detect launch per block, the offset gone after the
@@ -97,7 +107,9 @@ channelizer beside it.  Phases, each fatal on failure:
 14. timing of the PFB receiver (both routes), its stages, and kernels #4-#6
     with their plain versions and bounds.
 
-Prints, before the last line, the card's name and power limit and one
+Every check of the front kernel prints the launcher's tile for its shape
+(O, R, P) on a line of its own.  Prints, before the last line, the card's
+name and power limit and one
 JSON object of kernels (one entry per kernel and path shape: the front
 kernel's plain mode has one for the flagship and one for the NFM path);
 the last line is
@@ -294,7 +306,8 @@ def phase_environment(report: dict) -> str:
     secs = time.perf_counter() - t0
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"kernels built: {sorted(built) or 'cached'} in {secs:.2f} s",
           flush=True)
@@ -330,11 +343,79 @@ def check_tile_choice(dev, rng) -> None:
         raise AssertionError(f"{T} taps at d=20 launched")
 
 
+def print_plan(label: str, mode: str, B: int, T: int, d: int, HC: int = 0,
+               avg_win: int = 0) -> dict:
+    """Print the front launcher's tile for one call shape on a line of its
+    own: outputs a block O, outputs a thread R, phases a staging group P."""
+    pl = ff.launch_plan(mode, B, T, d, HC, avg_win, device=DEVICE)
+    print(f"  front launcher plan, {label} (B={B}, T={T}, d={d}, {mode}): "
+          f"O={pl['O']} R={pl['R']} P={pl['P']} threads={pl['threads']} "
+          f"shared memory {pl['smem_bytes']} B", flush=True)
+    return pl
+
+
+def plain_odd_shapes() -> list[tuple]:
+    """(label, channels, block, taps, decim, words) at the ragged edges of
+    the plain mode's tile, sized from the launcher's full tile; words None
+    draws them at random."""
+    full = ff.launch_plan("plain", 40960, 1421, 20, device=DEVICE)
+    O, R = full["O"], full["R"]
+    return [
+        ("N = 1", 3, 2, 45, 2, None),
+        ("N one more than a multiple of R", 4, 3 * (37 * R + 1), 61, 3,
+         None),
+        ("N one less than a block's O", 2, 4 * (O - 1), 133, 4, None),
+        ("T = 1", 3, 200, 1, 2, None),
+        ("T < d", 3, 500, 3, 5, None),
+        ("T = nq*d, nq a multiple of R", 2, 6000, 9 * R * 20, 20, None),
+        ("T = nq*d, nq not a multiple of R", 2, 315, 9 * 5, 5, None),
+        ("d = 1", 2, 700, 33, 1, None),
+        ("two channels, different words", 2, 640, 45, 2,
+         [0, 2 ** 31 + 12345]),
+    ]
+
+
+def check_plain_odd_shapes(dev, rng) -> dict:
+    """The plain mode at each shape of :func:`plain_odd_shapes`, random
+    taps, history, phase: >= 100 dB against the float64 reference, within
+    1e-4 of the peak of the plain version, the launch counter up by one."""
+    worst = {"snr_db": np.inf, "rel_err": 0.0}
+    for label, Cn, B, T, d, words in plain_odd_shapes():
+        pl = print_plan(label, "plain", B, T, d)
+        if label.startswith("N one less"):
+            assert pl["O"] == B // d + 1, pl
+        h_rev = torch.as_tensor((rng.standard_normal(T) / np.sqrt(T)).astype(
+            np.float32), device=dev)
+        x = torch.as_tensor(noise_blocks(rng, 1, B, Cn)[0], device=dev)
+        hist = torch.as_tensor(noise_blocks(rng, 1, T - 1, Cn)[0], device=dev)
+        word = torch.as_tensor(rng.integers(0, 2 ** 32, Cn) if words is None
+                               else words, dtype=torch.int64, device=dev)
+        phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, Cn), device=dev)
+        n0 = fused_tune_decimate.launches
+        y = fused_tune_decimate(x, hist, word, phase0, h_rev, d)
+        assert fused_tune_decimate.launches == n0 + 1
+        y_p = fused_tune_decimate_plain(x, hist, word, phase0, h_rev, d)
+        y_r = fused_tune_decimate_reference(x, hist, word, phase0, h_rev, d)
+        torch.cuda.synchronize()
+        snr = snr_db(y_r, y)
+        err = float((y - y_p).abs().max())
+        peak = float(y_p.abs().max())
+        print(f"  plain mode, {label}: C={Cn} N={B // d} T={T} d={d}: "
+              f"{snr:.2f} dB vs float64, max|kernel-plain| {err:.2e} (peak "
+              f"{peak:.3f})", flush=True)
+        assert y.shape == (Cn, B // d) and snr >= KERNEL_SNR_DB, snr
+        assert err <= KERNEL_TOL * peak, (err, peak)
+        worst = {"snr_db": min(worst["snr_db"], snr),
+                 "rel_err": max(worst["rel_err"], err / peak)}
+    return worst
+
+
 def check_plain_mode(op, blocks) -> dict:
     """Hold the plain-mode kernel to its plain version and float64
     reference over streamed [C, B] blocks at ``op``'s shape."""
     dev = op.word.device
     B, d = op.block, op.decim
+    print_plan(f"C={C}", "plain", B, op.ntaps, d)
     st = op.init_state(C)
     count0 = fused_tune_decimate.launches
     max_err, snrs = 0.0, []
@@ -369,12 +450,15 @@ def check_plain_mode(op, blocks) -> dict:
 def phase_kernel(report: dict, rng) -> dict:
     dev = torch.device(DEVICE)
     check_tile_choice(dev, rng)
+    # a stream of its own, so that the paths' inputs stay as they were
+    odd = check_plain_odd_shapes(dev, np.random.default_rng(SEED + 1))
     op = RxChain.create(flagship_config(), tune_hz=TUNE, mode=MODE,
                         device=dev).front
     assert (op.block, op.ntaps, op.decim) == (40960, 1421, 20)
     kern = check_plain_mode(op, noise_blocks(rng, 2, op.block))
     report["kernel_check"] = {"snr_db": kern["snr_db"],
-                              "max_abs_err": kern["max_abs_err"]}
+                              "max_abs_err": kern["max_abs_err"],
+                              "odd_shapes": odd}
     return kern
 
 
@@ -539,12 +623,13 @@ def phase_timing(report: dict, smi: str, chain, blocks, kern: dict):
           f"{budget_ms:.2f} ms", flush=True)
     print("  stages (ms): " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in stages.items()))
+    idle = device_idle("flagship", chain, blocks, ms_block)
     times = time_plain_kernel(kern)
     report["timing"] = {"ms_per_block": ms_block,
                         "host_ms_per_block": host_ms, "msps": msps,
                         "budget_ms": budget_ms,
                         "realtime_factor": budget_ms / ms_block,
-                        "stages_ms": stages}
+                        "stages_ms": stages, "idle": idle}
     return times
 
 
@@ -691,6 +776,10 @@ def phase_gain_kernels(report: dict, rng) -> dict:
                         device=dev).front
     assert (op.block, op.ntaps, op.decim) == (40960, 1421, 20)
     assert op.nb_detect == {"avg_win": 64, "kwidth": 961}
+    HC = (op.rc.shape[0] - 1) // 2
+    for mode in ("gained", "nb"):
+        print_plan(f"featured C={C}", mode, op.block, op.ntaps, op.decim, HC,
+                   op.avg_win)
     res = check_gain_modes(dev, rng, op, C, 3)
     report["gain_kernel_check"] = {
         k: res[k] for k in ("nb_err", "gained_err", "near", "nb_snr",
@@ -1003,6 +1092,63 @@ def step_ms(chain, blocks, iters: int) -> tuple[float, float]:
     return start.elapsed_time(stop) / iters, host
 
 
+def device_idle(label: str, chain, blocks, untraced_ms: float,
+                n: int = 10) -> dict:
+    """Device idle share of ``chain``'s step in a running stream: 10
+    steps after warm-up traced by torch.profiler (CUDA activity); busy is
+    the union of the device intervals of kernels and copies, the span runs
+    from the first device start to the last device end, idle share = 1 -
+    busy/span.  The traced steps run slower than untraced ones (the
+    profiler's host cost), so the share is also given against the untraced
+    step ``untraced_ms``: 1 - busy/untraced.  And the front kernel's share
+    of busy time."""
+    dev = torch.device(DEVICE)
+    xs = [torch.as_tensor(b, device=dev) for b in blocks[:2]]
+    st = chain.init_state()
+    for i in range(5):                                   # warm-up
+        st, _ = chain.step(st, xs[i % 2])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            st, _ = chain.step(st, xs[i % 2])
+        torch.cuda.synchronize()
+    ivs, front = [], 0.0
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        ivs.append((e.time_range.start, e.time_range.end))
+        if "fused_tune_decimate_kernel" in e.name:
+            front += e.time_range.end - e.time_range.start
+    assert ivs, f"{label}: the trace holds no device activity"
+    ivs.sort()
+    busy, (a0, b0) = 0.0, ivs[0]
+    for a, b in ivs[1:]:
+        if a > b0:
+            busy += b0 - a0
+            a0, b0 = a, b
+        else:
+            b0 = max(b0, b)
+    busy += b0 - a0
+    span = max(b for _, b in ivs) - ivs[0][0]
+    busy_ms = busy / n / 1e3
+    out = {"idle_share": 1.0 - busy / span, "busy_ms": busy_ms,
+           "span_ms": span / n / 1e3, "front_share": front / busy,
+           "device_activities": len(ivs), "untraced_ms": untraced_ms,
+           "idle_share_untraced": 1.0 - busy_ms / untraced_ms}
+    print(f"  {label} idle share = {out['idle_share']:.4f} (1 - busy/span "
+          f"over {n} traced steps: device busy {busy_ms:.4f} of a "
+          f"{out['span_ms']:.4f} ms span a step; front kernel "
+          f"{out['front_share']:.4f} of busy; {len(ivs)} device activities)",
+          flush=True)
+    print(f"  {label} idle share against the untraced step = "
+          f"{out['idle_share_untraced']:.4f} (1 - busy/untraced, untraced "
+          f"step {untraced_ms:.4f} ms)", flush=True)
+    assert front > 0, f"{label}: no front kernel in the trace"
+    return out
+
+
 def gain_kernel_bound(op, mode: str) -> dict:
     """The least time the card could take for one gained or NB-detect
     call: each input read once, each output written once, against the
@@ -1070,9 +1216,9 @@ def phase_timing_featured(report: dict, smi: str, featured, f_blocks, nfm,
             **gain_kernel_bound(op, "nb"), "library_ms": None},
     }
     print(f"timing of the featured and NFM paths [{smi}]:", flush=True)
-    for label, ms, host, budget, chain in (
-            ("featured", f_ms, f_host, f_budget, featured),
-            ("NFM", n_ms, n_host, n_budget, nfm)):
+    for label, ms, host, budget, chain, blocks in (
+            ("featured", f_ms, f_host, f_budget, featured, f_blocks),
+            ("NFM", n_ms, n_host, n_budget, nfm, n_blocks)):
         msps = C * chain.block_in / (ms * 1e-3) / 1e6
         print(f"  {label} step {ms:.4f} ms/block (device events), "
               f"{host:.4f} ms/block (host clock), {msps:.1f} Msps in, "
@@ -1080,7 +1226,8 @@ def phase_timing_featured(report: dict, smi: str, featured, f_blocks, nfm,
               flush=True)
         report[f"timing_{label.lower()}"] = {
             "ms_per_block": ms, "host_ms_per_block": host, "msps": msps,
-            "budget_ms": budget, "realtime_factor": budget / ms}
+            "budget_ms": budget, "realtime_factor": budget / ms,
+            "idle": device_idle(label, chain, blocks, ms)}
     print("  featured stages (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in stages.items()), flush=True)
     report["timing_featured"]["stages_ms"] = stages

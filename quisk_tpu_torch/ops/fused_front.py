@@ -57,28 +57,37 @@ from quisk_tpu_torch.ops.nco import (MASK32, TWO_PI_OVER_2_32, freq_word,
 from quisk_tpu_torch.ops.noise import raised_cosine
 
 _ERR_TAPS_TOO_LONG = -1          # the launcher's kErrTapsTooLong
+_PLAN_MODES = {"plain": 0, "gained": 1, "nb": 2}   # the kernel's Mode
 GROUP = 16                       # raw samples per coarse gain group
 NEAR_THRESHOLD = 1e-5            # |X - thr| <= this * thr: a group that a
 #                                  different summation order may flip
 
 
-@functools.cache
-def _launchers():
-    """The C launchers, loaded (and built) once, their signatures bound."""
-    lib = _kernels.load("fused_tune_decimate")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    sigs = {
-        "fused_tune_decimate": [ptr] * 6 + [i32] * 4 + [ptr],
-        "fused_tune_decimate_gained": [ptr] * 7 + [i32] * 4 + [ptr],
-        "fused_tune_decimate_nb": [ptr] * 11 + [i32] * 6 + [ptr],
-    }
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {                  # the C launchers' argument types
+    "fused_tune_decimate": [_PTR] * 6 + [_I32] * 4 + [_PTR],
+    "fused_tune_decimate_gained": [_PTR] * 7 + [_I32] * 4 + [_PTR],
+    "fused_tune_decimate_nb": [_PTR] * 11 + [_I32] * 6 + [_PTR],
+    "fused_tune_decimate_plan": [_I32] * 6 + [_PTR],
+}
+
+
+def bind(lib: ctypes.CDLL, names=tuple(_SIGNATURES)) -> dict:
+    """{name: launcher} of a loaded library of this kernel's source, with
+    the signatures of ``names`` bound."""
     out = {}
-    for name, argtypes in sigs.items():
+    for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
         out[name] = fn
     return out
+
+
+@functools.cache
+def _launchers():
+    """The C launchers, loaded (and built) once, their signatures bound."""
+    return bind(_kernels.load("fused_tune_decimate"))
 
 
 def gain_grid(ntaps: int) -> tuple[int, int]:
@@ -144,6 +153,29 @@ def _launch(name: str, x, *args) -> None:
                          "memory than one block has")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def launch_plan(mode: str, block: int, ntaps: int, decim: int, HC: int = 0,
+                avg_win: int = 0, device="cuda") -> dict:
+    """What the C launcher chooses for one call shape on a CUDA ``device``,
+    without launching: outputs a block ``O``, outputs a thread ``R``,
+    phases a staging group ``P``, ``threads`` a block and ``smem_bytes``.
+    ``mode`` is "plain", "gained" or "nb" (``HC``, ``avg_win`` as for
+    :func:`fused_tune_decimate_nb`)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(dev):
+        err = _launchers()["fused_tune_decimate_plan"](
+            _PLAN_MODES[mode], block, ntaps, decim, HC, avg_win, out)
+    if err == _ERR_TAPS_TOO_LONG:
+        raise ValueError("the taps at this decimation need more shared "
+                         "memory than one block has")
+    if err != 0:
+        raise RuntimeError(f"fused_tune_decimate_plan failed: CUDA error "
+                           f"{err}")
+    return dict(zip(("O", "R", "P", "threads", "smem_bytes"), out))
 
 
 # ------------------------------------------------------------ plain pieces
