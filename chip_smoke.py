@@ -15,7 +15,9 @@ receiver behind the raw-IQ conditioner.  And the 4096-channel PFB
 channelizer receiver (2x-oversampled polyphase filterbank, 33.5 M input
 samples a block, mode quarters USB/LSB/AM/FM, polyphase sums, stage-2 IDFT
 and demodulators in hand-written kernels) with the critically-sampled
-channelizer beside it.  Phases, each fatal on failure:
+channelizer beside it.  Then the 1024-channel transmit chain, the TX->RX
+loopback over the front kernel, PureSignal and the spectrum services.
+Phases, each fatal on failure:
 
 1. environment: the card's name and power limit; build every kernel in
    quisk_tpu_torch/csrc/ (one nvcc each, started together);
@@ -105,7 +107,33 @@ channelizer beside it.  Phases, each fatal on failure:
     one launch per block, y equal (>= 100 dB) to the torch-op route, the
     carriers in their channels, the kernel against its plain version;
 14. timing of the PFB receiver (both routes), its stages, and kernels #4-#6
-    with their plain versions and bounds.
+    with their plain versions and bounds;
+15. the TX chain of bench.py:681-688 (1024 channels, 2048-sample mic
+    blocks, 192 kS/s out, 6 dB compression, pre-emphasis 0.3, ALC on, rows
+    USB/FM alternating) for 4 blocks of seeded voice-like audio: finite
+    complex64 [1024, 8192] per block, rows 0-7 >= 80 dB against the same
+    chain on the CPU, the ALC's per-sample clip decisions on rows 0-7 equal
+    to the CPU's on identical inputs (those on each side's own modulated IQ
+    counted), the USB rows' image band <= -40 dB against the wanted band
+    through the card's SpectrumAnalyzer;
+16. timing of the TX step (events and host clock, output Msps, real-time
+    factor), its stages on one block's real intermediates, the CUDA
+    launches of TxALC and of the whole step, and its device idle share;
+17. the TX->RX loopback: the TX chain with ALC, compression and
+    pre-emphasis off into the 192 kS/s RxChain (kernel #1 at T=133, d=4)
+    for 16 blocks: one front launch a block, the voice recovered at > 18 dB
+    on rows 0-7 against the oracle of tests/test_tx.py:101-117, kernel #1
+    on the loopback's own input against its plain version;
+18. PureSignal: the IMD two-tone from a TxChain on the card through
+    SimulatedPA, calibrated and refined once in the chain's predistortion
+    slot: IMD better by > 12 dB by two_tone_imd_db and by the card's
+    SpectrumAnalyzer;
+19. the spectrum services at 1024 channels against the CPU: the analyzer
+    (fft 2048, disjoint and 50% overlap) within rtol 1e-4 of the CPU's
+    power, the S-meter and measure_frequency, ZoomSpectrum (16x) in its
+    passband; and their times.
+
+Phases 15-19 draw from an RNG stream of their own (SEED + 2).
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
@@ -130,6 +158,7 @@ import time
 
 import numpy as np
 import torch
+from scipy import signal as sig
 
 from quisk_tpu_torch import _kernels
 from quisk_tpu_torch.modes import Mode
@@ -142,7 +171,13 @@ from quisk_tpu_torch.ops.fused_front import (fused_tune_decimate,
                                              fused_tune_decimate_reference)
 from quisk_tpu_torch.ops import pfb_kernels as pk
 from quisk_tpu_torch.ops.channelizer import PFBChannelizer, PFBRxPipeline
+from quisk_tpu_torch.ops.agc import TxALC
+from quisk_tpu_torch.ops.spectrum import (SpectrumAnalyzer, ZoomSpectrum,
+                                          measure_frequency)
 from quisk_tpu_torch.rx import RxChain, RxChainConfig
+from quisk_tpu_torch.tx import TxChain, TxChainConfig
+from quisk_tpu_torch.tx.puresignal import (Predistorter, SimulatedPA,
+                                           two_tone_imd_db)
 
 FS = 960000.0
 C = 1024
@@ -1071,13 +1106,14 @@ def phase_wcp(report: dict, blocks) -> None:
 
 
 # ------------------------------------------- timing of the new paths/kernels
-def step_ms(chain, blocks, iters: int) -> tuple[float, float]:
+def step_ms(chain, blocks, iters: int, warmup: int = 5
+            ) -> tuple[float, float]:
     """(device ms by events, host ms with a synchronise) per step of
     ``chain`` in a running stream, both over the same ``iters`` steps."""
     dev = torch.device(DEVICE)
     xs = [torch.as_tensor(b, device=dev) for b in blocks[:2]]
     st = chain.init_state()
-    for i in range(5):                                   # warm-up
+    for i in range(warmup):
         st, _ = chain.step(st, xs[i % 2])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1093,7 +1129,8 @@ def step_ms(chain, blocks, iters: int) -> tuple[float, float]:
 
 
 def device_idle(label: str, chain, blocks, untraced_ms: float,
-                n: int = 10) -> dict:
+                n: int = 10, warmup: int = 5, front_kernel: bool = True
+                ) -> dict:
     """Device idle share of ``chain``'s step in a running stream: 10
     steps after warm-up traced by torch.profiler (CUDA activity); busy is
     the union of the device intervals of kernels and copies, the span runs
@@ -1101,11 +1138,12 @@ def device_idle(label: str, chain, blocks, untraced_ms: float,
     busy/span.  The traced steps run slower than untraced ones (the
     profiler's host cost), so the share is also given against the untraced
     step ``untraced_ms``: 1 - busy/untraced.  And the front kernel's share
-    of busy time."""
+    of busy time (a path without the front kernel: ``front_kernel``
+    False)."""
     dev = torch.device(DEVICE)
     xs = [torch.as_tensor(b, device=dev) for b in blocks[:2]]
     st = chain.init_state()
-    for i in range(5):                                   # warm-up
+    for i in range(warmup):
         st, _ = chain.step(st, xs[i % 2])
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -1145,7 +1183,7 @@ def device_idle(label: str, chain, blocks, untraced_ms: float,
     print(f"  {label} idle share against the untraced step = "
           f"{out['idle_share_untraced']:.4f} (1 - busy/untraced, untraced "
           f"step {untraced_ms:.4f} ms)", flush=True)
-    assert front > 0, f"{label}: no front kernel in the trace"
+    assert front > 0 or not front_kernel, f"{label}: no front kernel"
     return out
 
 
@@ -1830,6 +1868,430 @@ def phase_timing_pfb(report: dict, smi: str, rx: dict, crit: dict) -> dict:
     return {name: {**{k: t[k] for k in keys}, "library_ms": None}
             for name, t in times.items()}
 
+# ------------------------------------------------------------- TX path
+TX_MODES = [int(Mode.USB) if i % 2 == 0 else int(Mode.FM) for i in range(C)]
+TX_BLOCKS = 4
+TX_MATCH_DB = 80.0         # card vs CPU chain, every row of 0-7
+TX_IMAGE_DB = -40.0        # SSB image band against the wanted band
+TX_AUDIO_MS = AUDIO_BLOCK / 48000.0 * 1e3
+LOOP_BLOCKS = 16
+LOOP_SNR_DB = 18.0         # tests/test_tx.py:117
+IMD_GAIN_DB = 12.0         # tests/test_puresignal.py:52
+SPEC_POWER_RTOL = 1e-4
+
+
+def tx_config() -> TxChainConfig:
+    """The TX chain of bench.py:681-688 (ALC on by default)."""
+    return TxChainConfig(channels=C, audio_block=AUDIO_BLOCK,
+                         tx_rate=192000.0, compress_db=6.0, preemphasis=0.3)
+
+
+def voice_like(rng, n: int, rows: int, band=(300.0, 2700.0),
+               fs: float = 48000.0) -> np.ndarray:
+    """Band-limited noise standing in for speech, unit RMS per row: seeded
+    white noise through a 6th-order Butterworth bandpass (the recipe of
+    quisk_tpu/io/sources.py:28)."""
+    w = rng.standard_normal((rows, n + 4096))
+    sos = sig.butter(6, band, btype="bandpass", fs=fs, output="sos")
+    a = sig.sosfilt(sos, w, axis=-1)[:, 4096:]
+    return a / np.sqrt(np.mean(a ** 2, axis=-1, keepdims=True))
+
+
+def alc_rows(st: dict, rows: int, dev) -> dict:
+    """The first ``rows`` channels of a TxALC state, on ``dev``."""
+    return {k: (v if v.ndim == 0 else v[:rows]).to(dev)
+            for k, v in st.items()}
+
+
+def band_db(p: np.ndarray, f: np.ndarray, lo: float, hi: float) -> float:
+    return float(10 * np.log10(np.mean(p[(f > lo) & (f < hi)])))
+
+
+def phase_tx(report: dict, rng) -> dict:
+    """The TX chain at full width for TX_BLOCKS blocks on the card, rows
+    0-7 against the same chain on the CPU, the ALC's clip decisions, and
+    the USB rows' image band through the card's SpectrumAnalyzer."""
+    dev = torch.device(DEVICE)
+    tx = TxChain.create(tx_config(), mode=TX_MODES, device=dev)
+    assert tx.block_tx == 4 * AUDIO_BLOCK and tx.alc is not None
+    n = TX_BLOCKS * AUDIO_BLOCK
+    audio = (0.3 * voice_like(rng, n, C)).astype(np.float32)
+    blocks = [np.ascontiguousarray(audio[:, i * AUDIO_BLOCK:
+                                         (i + 1) * AUDIO_BLOCK])
+              for i in range(TX_BLOCKS)]
+    st = tx.init_state()
+    states, out = [], []
+    for b in blocks:
+        states.append(st)
+        st, iq = tx.step(st, torch.as_tensor(b, device=dev))
+        out.append(iq)
+    torch.cuda.synchronize()
+    for iq in out:
+        assert iq.shape == (C, tx.block_tx) and iq.dtype == torch.complex64
+        assert bool(torch.isfinite(torch.view_as_real(iq)).all())
+
+    cpu = TxChain.create(dataclasses.replace(tx_config(), channels=8),
+                         mode=TX_MODES[:8], device="cpu")
+
+    def run_cpu():
+        cst, c_out, c_states = cpu.init_state(), [], []
+        for b in blocks:
+            c_states.append(cst)
+            cst, iq = cpu.step(cst, torch.as_tensor(b[:8]))
+            c_out.append(iq)
+        return c_out, c_states
+    cpu_out, cpu_states = one_thread(run_cpu)
+    card8 = torch.cat([o[:8].cpu() for o in out], dim=-1)
+    cpu8 = torch.cat(cpu_out, dim=-1)
+    snr = np.array([snr_db(cpu8[r], card8[r]) for r in range(8)])
+    print("  TX path: card vs CPU chain, rows 0-7 over "
+          f"{TX_BLOCKS} blocks, dB: "
+          + ", ".join(f"{v:.1f}" for v in snr), flush=True)
+    assert bool(np.all(snr >= TX_MATCH_DB)), snr
+
+    # the ALC's clip decisions, rows 0-7, block by block from the states
+    # each side entered it with: the card's ALC on the CPU's own modulated
+    # IQ and state (identical inputs: must decide the same at every
+    # sample), and each side on its own IQ (counted and printed)
+    alc8 = TxALC.create(48000.0, mode=TX_MODES[:8], channels=8, device=dev)
+    flips_same = flips_own = clips = 0
+    worst_same = 0.0
+    for b, s_card, s_cpu in zip(blocks, states, cpu_states):
+        xb = torch.as_tensor(b, device=dev)
+        _, iq_g = tx.pre_alc(s_card, xb)
+        _, _, c_g = alc8.trace(alc_rows(s_card["alc"], 8, dev), iq_g[:8])
+
+        def cpu_side():
+            _, iq_c = cpu.pre_alc(s_cpu, torch.as_tensor(b[:8]))
+            _, o_c, c_c = cpu.alc.trace(s_cpu["alc"], iq_c)
+            return iq_c, o_c, c_c
+        iq_c, o_c, c_c = one_thread(cpu_side)
+        _, o_s, c_s = alc8.trace(alc_rows(s_cpu["alc"], 8, dev),
+                                 iq_c.to(dev))
+        flips_same += int((c_s.cpu() != c_c).sum())
+        flips_own += int((c_g.cpu() != c_c).sum())
+        clips += int(c_c.sum())
+        worst_same = max(worst_same, float((o_s.cpu() - o_c).abs().max()))
+    print(f"  TxALC clip decisions, rows 0-7, {TX_BLOCKS} blocks: {clips} "
+          f"clips on the CPU; flipped on identical inputs {flips_same} "
+          f"(max |card - CPU| of the ALC output {worst_same:.3e}); flipped "
+          f"on each side's own modulated IQ {flips_own}", flush=True)
+    assert clips > 0 and flips_same == 0, (clips, flips_same)
+
+    # the USB rows' spectrum on the card: image band against wanted band
+    an = SpectrumAnalyzer.create(2048, tx.block_tx, device=dev)
+    ast = an.init_state(C)
+    for iq in out[1:]:
+        ast, _ = an.accumulate(ast, iq)
+    p = an.power(ast)[0::2].cpu().numpy().astype(np.float64)
+    f = an.freqs(192000.0)
+    image = np.array([band_db(r, f, -2700.0, -300.0)
+                      - band_db(r, f, 300.0, 2700.0) for r in p])
+    print(f"  TX USB rows ({len(p)}): image band vs wanted band, worst "
+          f"{image.max():.1f} dB, median {np.median(image):.1f} dB "
+          "(SpectrumAnalyzer on the card, blocks 1-3)", flush=True)
+    assert image.max() <= TX_IMAGE_DB, image.max()
+    report["tx_path"] = {"blocks": TX_BLOCKS, "cpu_match_db": snr.tolist(),
+                         "alc_clips": clips, "alc_flips_same": flips_same,
+                         "alc_flips_own": flips_own,
+                         "alc_max_abs_err_same": worst_same,
+                         "image_db_worst": float(image.max())}
+    return {"tx": tx, "blocks": blocks, "state": states[1]}
+
+
+def count_launches(fn) -> int:
+    """CUDA kernels and copies that one call of fn() puts on the device,
+    counted in a torch.profiler trace."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
+def phase_timing_tx(report: dict, smi: str, txr: dict) -> None:
+    tx, blocks, st = txr["tx"], txr["blocks"], txr["state"]
+    dev = torch.device(DEVICE)
+    ev_ms, host_ms = step_ms(tx, blocks, iters=3, warmup=1)
+    msps = C * tx.block_tx / (ev_ms * 1e-3) / 1e6
+    # per stage on one block's real intermediates
+    x = torch.as_tensor(blocks[1], device=dev)
+    s = dict(st)
+    a = tx.condition(s, x)
+    ac = a.to(torch.complex64)
+    _, z = tx.analytic(st["analytic"], ac)
+    iq = tx.modulators(dict(st), x, z)
+    _, iq_alc = tx.alc(st["alc"], iq)
+    _, iq_up = tx.interp(st["interp"], iq_alc)
+
+    def pre_comp():
+        _, y = tx.preemph(st["preemph"], x)
+        return tx.comp((), y)
+
+    stages = {
+        "analytic_fir": cuda_ms(lambda: tx.analytic(st["analytic"], ac), 10),
+        "preemphasis_compressor": cuda_ms(pre_comp, 10),
+        "modulators": cuda_ms(lambda: tx.modulators(dict(st), x, z), 10),
+        "tx_alc": cuda_ms(lambda: tx.alc(st["alc"], iq), 1, warmup=0),
+        "interpolator": cuda_ms(lambda: tx.interp(st["interp"], iq_alc), 10),
+        "tune_trim": cuda_ms(lambda: tx.place(dict(st), iq_up), 10),
+    }
+    alc_launches = count_launches(lambda: tx.alc(st["alc"], iq))
+    step_launches = count_launches(lambda: tx.step(st, x))
+    print(f"timing of the TX path [{smi}]:", flush=True)
+    print(f"  TX step {ev_ms:.4f} ms/block (device events), {host_ms:.4f} "
+          f"ms/block (host clock), {msps:.1f} Msps out, real-time factor "
+          f"{TX_AUDIO_MS / ev_ms:.4f}x of {TX_AUDIO_MS:.2f} ms", flush=True)
+    print("  TX stages (ms): " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in stages.items()))
+    print(f"  CUDA launches a block: TxALC {alc_launches}, whole step "
+          f"{step_launches}", flush=True)
+    idle = device_idle("TX", tx, blocks, ev_ms, n=2, warmup=1,
+                       front_kernel=False)
+    report["tx_timing"] = {"ms_per_block": ev_ms, "host_ms_per_block":
+                           host_ms, "msps_out": msps,
+                           "realtime_factor": TX_AUDIO_MS / ev_ms,
+                           "stages_ms": stages,
+                           "launches_alc": alc_launches,
+                           "launches_step": step_launches, "idle": idle}
+
+
+def fir_stream(x: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """y[n] = sum_k h[k] x[n-k] from zero history, float64."""
+    return np.convolve(x, taps, mode="full")[:len(x)]
+
+
+def frac_align_snr(ref: np.ndarray, test: np.ndarray, max_lag: int = 2048,
+                   skip: int = 0) -> float:
+    """SNR of ``test`` against ``ref`` after a fractional delay and gain
+    alignment at the cross-correlation peak (the loopback oracle's
+    measure, after quisk_tpu/oracle/dsp.py:113)."""
+    r = np.asarray(ref, np.float64)[skip:]
+    t = np.asarray(test, np.float64)[skip:]
+    n = min(len(r), len(t))
+    r, t = r[:n] - r[:n].mean(), t[:n] - t[:n].mean()
+    N = 1 << int(np.ceil(np.log2(2 * n)))
+    xc = np.fft.irfft(np.fft.rfft(r, N) * np.conj(np.fft.rfft(t, N)), N)
+    lags = np.concatenate([np.arange(0, max_lag + 1), np.arange(-max_lag, 0)])
+    k = int(np.argmax(np.abs(np.concatenate([xc[:max_lag + 1],
+                                             xc[-max_lag:]]))))
+    lag = lags[k]
+    ym1, y0, yp1 = xc[(lag - 1) % N], xc[lag % N], xc[(lag + 1) % N]
+    den = ym1 - 2 * y0 + yp1
+    mu = float(np.clip(0.5 * (ym1 - yp1) / den if abs(den) > 1e-30 else 0.0,
+                       -1, 1))
+    d = lag + mu
+    f = np.fft.rfftfreq(N)
+    t_al = np.fft.irfft(np.fft.rfft(t, N) * np.exp(-2j * np.pi * f * d),
+                        N)[:n]
+    guard = int(np.ceil(abs(d))) + 8
+    a, b = r[guard:n - guard], t_al[guard:n - guard]
+    b = np.dot(a, b) / np.dot(b, b) * b
+    return float(10 * np.log10(np.mean(a ** 2) / np.mean((a - b) ** 2)))
+
+
+def loopback_oracle(voice: np.ndarray, fm: bool) -> np.ndarray:
+    """What the RX should hear (tests/test_tx.py:101-117): the TX's own
+    bandpassed audio; for FM its difference through the 300 Hz
+    de-emphasis one-pole."""
+    taps = design.bandpass_analytic(513, 300.0, 2700.0, 48000.0)
+    bp = fir_stream(voice.astype(np.float64), np.real(taps) * 2.0)
+    if not fm:
+        return bp
+    a = np.exp(-2 * np.pi * 300.0 / 48000.0)
+    return sig.lfilter([1 - a], [1.0, -a], np.diff(bp, prepend=0.0))
+
+
+def phase_loopback(report: dict, rng) -> dict:
+    """TX at 192 kS/s (ALC off, as tests/test_tx.py:89) on all 1024 rows,
+    USB/FM alternating, into the port's RxChain at 192 kS/s with the front
+    kernel at the NFM shape; the voice recovered on rows 0-7."""
+    dev = torch.device(DEVICE)
+    tx = TxChain.create(dataclasses.replace(tx_config(), alc=False,
+                                            compress_db=0.0,
+                                            preemphasis=0.0),
+                        mode=TX_MODES, device=dev)
+    rx = RxChain.create(RxChainConfig(sample_rate=192e3, channels=C,
+                                      audio_block=AUDIO_BLOCK, agc=False,
+                                      fused_frontend=True,
+                                      fm_deviation_hz=2500.0),
+                        tune_hz=[0.0] * C, mode=TX_MODES, device=dev)
+    assert rx.front is not None and (rx.front.ntaps, rx.front.decim) == (
+        133, 4) and rx.block_in == tx.block_tx
+    n = LOOP_BLOCKS * AUDIO_BLOCK
+    voice = voice_like(rng, n, C, band=(400.0, 2400.0))
+    voice = (0.4 * voice / np.max(np.abs(voice), axis=-1, keepdims=True)
+             ).astype(np.float32)
+    tst, rst = tx.init_state(), rx.init_state()
+    iqs, audio = [], []
+    reset_launches()
+    for i in range(LOOP_BLOCKS):
+        tst, iq = tx.step(tst, torch.as_tensor(
+            voice[:, i * AUDIO_BLOCK:(i + 1) * AUDIO_BLOCK], device=dev))
+        rst, a = rx.step(rst, iq)
+        audio.append(a[:8].cpu())
+        if i < 2:
+            iqs.append(iq.cpu().numpy())
+    torch.cuda.synchronize()
+    nl = launches()
+    print(f"  loopback: {LOOP_BLOCKS} blocks, front launches {nl}",
+          flush=True)
+    assert nl == {"plain": LOOP_BLOCKS, "gained": 0, "nb": 0}, nl
+    aud = torch.cat(audio, dim=-1).numpy()
+    assert np.all(np.isfinite(aud))
+    snr = [frac_align_snr(loopback_oracle(voice[r], TX_MODES[r] ==
+                                          int(Mode.FM)), aud[r],
+                          skip=4 * AUDIO_BLOCK) for r in range(8)]
+    print("  loopback voice SNR, rows 0-7 (USB, FM, ...), dB: "
+          + ", ".join(f"{v:.1f}" for v in snr), flush=True)
+    assert min(snr) > LOOP_SNR_DB, snr
+    # kernel #1 on the loopback's own input against its plain version
+    kern = check_plain_mode(rx.front, iqs)
+    print(f"  loopback kernel #1: launches {nl['plain']}, max |kernel - "
+          f"plain| {kern['max_abs_err']:.3e}", flush=True)
+    report["loopback"] = {"blocks": LOOP_BLOCKS, "launches": nl,
+                          "snr_db": snr,
+                          "kernel_max_abs_err": kern["max_abs_err"]}
+    return report["loopback"]
+
+
+def imd_db_of_power(p: np.ndarray, f: np.ndarray) -> float:
+    """Third-order IMD (dBc) from a power spectrum: the larger of the
+    2f1-f2 / 2f2-f1 peaks against the larger tone (+-3 bins)."""
+    def peak(f0):
+        k = int(np.argmin(np.abs(f - f0)))
+        return float(np.max(p[max(k - 3, 0):k + 4]))
+    return float(10 * np.log10(max(peak(-500.0), peak(3100.0))
+                               / max(peak(700.0), peak(1900.0))))
+
+
+def phase_puresignal(report: dict) -> None:
+    """The IMD two-tone from a TxChain on the card through SimulatedPA,
+    then Predistorter.from_measurement in the chain's slot, then one
+    refine: the IMD must fall by > IMD_GAIN_DB, by two_tone_imd_db and by
+    the card's SpectrumAnalyzer."""
+    dev = torch.device(DEVICE)
+    tx = TxChain.create(TxChainConfig(channels=1, alc=False,
+                                      predistort=True),
+                        mode=int(Mode.IMD), device=dev)
+    pa = SimulatedPA()
+    an = SpectrumAnalyzer.create(2048, AUDIO_BLOCK, device=dev)
+    f = an.freqs(48000.0)
+
+    def on_air(chain, nblk: int = 8):
+        st, out = chain.init_state(), []
+        silent = torch.zeros((1, AUDIO_BLOCK), device=dev)
+        for _ in range(nblk):
+            st, iq = chain.step(st, silent)
+            out.append(iq)
+        return torch.cat(out[2:], dim=-1).cpu().numpy()[0].astype(
+            np.complex128)
+
+    def imd(x):
+        y = pa(x)
+        ast = an.init_state(1)
+        for i in range(len(y) // AUDIO_BLOCK):
+            ast, _ = an.accumulate(ast, torch.as_tensor(
+                y[None, i * AUDIO_BLOCK:(i + 1) * AUDIO_BLOCK], device=dev))
+        p = an.power(ast)[0].cpu().numpy().astype(np.float64)
+        return two_tone_imd_db(y, 48000.0, 700.0, 1900.0), imd_db_of_power(
+            p, f)
+
+    x = on_air(tx)
+    before = imd(x)
+    pd = Predistorter.from_measurement(x, pa(x), device=dev)
+    x1 = on_air(dataclasses.replace(tx, predist=pd))
+    first = imd(x1)
+    pd2 = pd.refine(x, pa(x1))
+    after = imd(on_air(dataclasses.replace(tx, predist=pd2)))
+    print(f"  PureSignal IMD through SimulatedPA, dBc (two_tone_imd_db / "
+          f"card SpectrumAnalyzer): before {before[0]:.1f} / "
+          f"{before[1]:.1f}, calibrated {first[0]:.1f} / {first[1]:.1f}, "
+          f"refined {after[0]:.1f} / {after[1]:.1f}", flush=True)
+    for k in range(2):
+        assert after[k] < before[k] - IMD_GAIN_DB, (before, after)
+    report["puresignal"] = {"before": before, "calibrated": first,
+                            "refined": after}
+
+
+def phase_spectrum(report: dict, smi: str, rng) -> None:
+    """SpectrumAnalyzer at 1024 channels x 2048 (disjoint and 50%
+    overlap) and ZoomSpectrum on the card against the CPU."""
+    dev = torch.device(DEVICE)
+    n = 3 * AUDIO_BLOCK
+    t = np.arange(n) / 48000.0
+    f0 = rng.uniform(-20000.0, 20000.0, C)
+    x = (np.exp(2j * np.pi * f0[:, None] * t) + 0.1 * (
+        rng.standard_normal((C, n)) + 1j * rng.standard_normal((C, n)))
+         ).astype(np.complex64)
+    blocks = [torch.as_tensor(x[:, i * AUDIO_BLOCK:(i + 1) * AUDIO_BLOCK])
+              for i in range(3)]
+    out, times = {}, {}
+    for ov in (0.0, 0.5):
+        an = SpectrumAnalyzer.create(2048, AUDIO_BLOCK, window=
+                                     "blackman-harris", overlap=ov,
+                                     device=dev)
+        can = SpectrumAnalyzer.create(2048, AUDIO_BLOCK, window=
+                                      "blackman-harris", overlap=ov,
+                                      device="cpu")
+        st, cst = an.init_state(C), can.init_state(C)
+        for b in blocks:
+            st, _ = an.accumulate(st, b.to(dev))
+            cst, _ = one_thread(lambda: can.accumulate(cst, b))
+        p, cp = an.power(st).cpu(), can.power(cst)
+        rel = float(((p - cp).abs() / cp.abs()).max())
+        sm = an.smeter_power(st, 48000.0, f0 - 500.0, f0 + 500.0).cpu()
+        csm = can.smeter_power(cst, 48000.0, f0 - 500.0, f0 + 500.0)
+        sm_rel = float(((sm - csm).abs() / csm).max())
+        xd = blocks[0].to(dev)
+        mf = measure_frequency(xd, 48000.0).cpu()
+        cmf = one_thread(lambda: measure_frequency(blocks[0], 48000.0))
+        mf_err = float((mf - cmf).abs().max())
+        times[f"analyzer_overlap_{ov}"] = cuda_ms(
+            lambda: an.accumulate(st, xd), 10)
+        print(f"  SpectrumAnalyzer C={C}, fft 2048, overlap {ov}: power max "
+              f"rel diff to CPU {rel:.2e}, smeter {sm_rel:.2e}, "
+              f"measure_frequency max diff {mf_err:.2e} Hz", flush=True)
+        assert rel <= SPEC_POWER_RTOL and sm_rel <= 1e-5, (rel, sm_rel)
+        assert mf_err <= 1e-3, mf_err
+        assert np.allclose(cmf.numpy(), f0, atol=3.0)
+        out[f"overlap_{ov}"] = {"power_rel": rel, "smeter_rel": sm_rel,
+                                "freq_diff_hz": mf_err}
+    times["measure_frequency"] = cuda_ms(
+        lambda: measure_frequency(blocks[0].to(dev), 48000.0), 10)
+    # zoom: 16x re-capture around 5 kHz on every row; rows 0-7 vs the CPU
+    # in the zoomed passband (|f| <= 0.4 fs/D: the lowpass's flat part)
+    zkw = dict(fft_size=256, block=4096, center_hz=5000.0,
+               sample_rate=48000.0, decim=16, overlap=0.5)
+    zx = (np.exp(2j * np.pi * (5000.0 + rng.uniform(-600, 600, C))[:, None]
+                 * np.arange(2 * 4096) / 48000.0)
+          + 0.05 * (rng.standard_normal((C, 2 * 4096)) + 1j *
+                    rng.standard_normal((C, 2 * 4096)))).astype(np.complex64)
+    zm = ZoomSpectrum.create(device=dev, **zkw)
+    czm = ZoomSpectrum.create(device="cpu", **zkw)
+    zs, czs = zm.init_state(C), czm.init_state(8)
+    for i in range(2):
+        zb = torch.as_tensor(zx[:, i * 4096:(i + 1) * 4096])
+        zs, _ = zm.accumulate(zs, zb.to(dev))
+        czs, _ = one_thread(lambda: czm.accumulate(czs, zb[:8]))
+    zp, czp = zm.power(zs)[:8].cpu(), czm.power(czs)
+    pas = np.abs(zm.freqs(48000.0)) <= 0.4 * 48000.0 / 16
+    zrel = float(((zp - czp).abs() / czp.abs())[:, pas].max())
+    print(f"  ZoomSpectrum C={C}, 16x at 5 kHz: power max rel diff to CPU "
+          f"{zrel:.2e} in the passband ({int(pas.sum())} bins), "
+          f"{float(((zp - czp).abs() / czp.abs()).max()):.2e} over all",
+          flush=True)
+    assert zrel <= SPEC_POWER_RTOL, zrel
+    zb = torch.as_tensor(zx[:, :4096], device=dev)
+    times["zoom"] = cuda_ms(lambda: zm.accumulate(zs, zb), 10)
+    print(f"timing of the spectrum services [{smi}] (ms a block): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    out["zoom_power_rel"] = zrel
+    report["spectrum"] = {**out, "ms": times}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1895,6 +2357,16 @@ def main(argv=None) -> int:
          "path": "PFB receiver", "launches": rx["launches"]["demod"],
          "max_abs_err": rx["demod_err"], **ptimes["demod"]},
     ]
+    del rx, crit
+    torch.cuda.empty_cache()
+    # the TX path and the spectrum services draw from a stream of their own
+    rng_tx = np.random.default_rng(SEED + 2)
+    txr = phase_tx(report, rng_tx)
+    phase_timing_tx(report, smi, txr)
+    del txr
+    phase_loopback(report, rng_tx)
+    phase_puresignal(report)
+    phase_spectrum(report, smi, rng_tx)
     report["kernels"] = kernels
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

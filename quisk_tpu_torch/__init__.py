@@ -1,5 +1,5 @@
-"""quisk_tpu_torch — the receive chain and the PFB channelizer receiver of
-quisk_tpu on PyTorch and CUDA.
+"""quisk_tpu_torch — the receive chain, the PFB channelizer receiver, the
+transmit chain and the spectrum services of quisk_tpu on PyTorch and CUDA.
 
 A second package beside ``quisk_tpu`` (the JAX reference, which it never
 imports).  Same op contract: an op holds its parameters as tensors on one
@@ -23,3 +23,4 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 from quisk_tpu_torch.modes import Mode  # noqa: E402,F401
 from quisk_tpu_torch.rx import RxChain, RxChainConfig  # noqa: E402,F401
+from quisk_tpu_torch.tx import TxChain, TxChainConfig  # noqa: E402,F401

@@ -16,6 +16,17 @@ The PFB channelizers' states need no function of their own:
 history, the grouped demod's per-run tuples (empty for SSB runs) and the
 kernel route's [S, 5*K1, K2] carry (rows zr, zi, y_de, env, y_dc on both
 sides) as they are.
+
+TX state: the reference keeps three complex leaves as host numpy
+complex64 at init, because complex64 cannot cross its device boundary:
+the ALC's delay line (``alc["buffer"]``), the interpolator's history
+(``interp``) and the EER splitter's delay line.  In the port all three are
+complex64 tensors on the chain's device from the start; here they cross
+as numpy complex64 arrays both ways, like every other leaf, and the TX
+tune phase as uint32 <-> int64.  The spectrum analyzer's overlapped mode
+carries its trailing samples as (re, im) float32 planes in the reference
+and as one complex64 tensor in the port
+(:func:`spectrum_state_from_numpy`).
 """
 
 from __future__ import annotations
@@ -26,22 +37,26 @@ import numpy as np
 import torch
 
 from quisk_tpu_torch._device import resolve_device
-from quisk_tpu_torch.ops.agc import AGC, WcpAGC
+from quisk_tpu_torch.ops.agc import AGC, TxALC, WcpAGC
 from quisk_tpu_torch.ops.channelizer import (OversampledPFB, PFBChannelizer,
                                              PFBRxPipeline)
 from quisk_tpu_torch.ops.demod import (AMDemod, FMDemod, GroupedDemod,
                                        GroupedDemodTM, MixedDemod, SSBDemod)
-from quisk_tpu_torch.ops.fir import OverlapSaveFIR, make_fir
+from quisk_tpu_torch.ops.compress import OvershootControl, SoftCompressor
+from quisk_tpu_torch.ops.fir import ConvFIR, OverlapSaveFIR, make_fir
 from quisk_tpu_torch.ops.fused_front import FusedTuneDecimate
-from quisk_tpu_torch.ops.iir import DCBlock, OnePole
+from quisk_tpu_torch.ops.iir import DCBlock, OnePole, PhaseRotator, Preemphasis
 from quisk_tpu_torch.ops.nco import NCO, phase_tensor
 from quisk_tpu_torch.ops.noise import AutoNotch, NoiseBlanker
 from quisk_tpu_torch.ops.nr import BlockLMS, SpectralNR
-from quisk_tpu_torch.ops.resample import FracDecim
+from quisk_tpu_torch.ops.resample import FracDecim, Interpolator
+from quisk_tpu_torch.ops.spectrum import SpectrumAnalyzer
 from quisk_tpu_torch.ops.squelch import FMSquelch, SSBSquelch
 from quisk_tpu_torch.modes import Mode
 from quisk_tpu_torch.rx.chain import RxChain
 from quisk_tpu_torch.rx.frontend import FrontConditioner
+from quisk_tpu_torch.tx.chain import TxChain
+from quisk_tpu_torch.tx.puresignal import Predistorter
 
 
 def state_from_numpy(tree, device=None):
@@ -231,6 +246,13 @@ def _featured_from_numpy(p: dict, device) -> dict:
     return out
 
 
+def _ols_from_numpy(d: dict, device) -> OverlapSaveFIR:
+    mask = np.asarray(d["mask"]).astype(np.complex64)
+    return OverlapSaveFIR(mask=torch.as_tensor(mask, device=device),
+                          ntaps=int(d["ntaps"]), block=int(d["block"]),
+                          nfft=mask.shape[-1])
+
+
 def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
     """An RxChain from the arrays of a ``quisk_tpu`` RxChain.
 
@@ -264,11 +286,7 @@ def rx_chain_from_numpy(p: dict, device=None) -> RxChain:
     stages = tuple(make_fir(np.asarray(s["taps"]), int(s["block"]),
                             decim=int(s["decim"]), device=device)
                    for s in p["stages"])
-    bpp = p["bp"]
-    mask = np.asarray(bpp["mask"]).astype(np.complex64)
-    bp = OverlapSaveFIR(mask=torch.as_tensor(mask, device=device),
-                        ntaps=int(bpp["ntaps"]), block=int(bpp["block"]),
-                        nfft=mask.shape[-1])
+    bp = _ols_from_numpy(p["bp"], device)
     frac = None
     if p.get("frac") is not None:
         num, den = p["frac"]["ratio"]
@@ -317,3 +335,121 @@ def rx_state_to_numpy(state: dict) -> dict:
     """Chain state as numpy arrays, phases as uint32 (the layout
     :func:`rx_state_from_numpy` reads)."""
     return state_to_numpy({k: state[k] for k in _STATE_KEYS})
+
+
+def tx_chain_from_numpy(p: dict, device=None) -> TxChain:
+    """A TxChain from the arrays of a ``quisk_tpu`` TxChain.
+
+    Keys: ``channels``, ``block``, ``block_tx``, ``audio_rate``, ``mode``
+    [C]; ``analytic``: {"mask" complex [nfft] or [C, nfft], "ntaps",
+    "block"}; ``preemph``: {"c"}; ``comp``: {"knee", "ceiling", "gain"};
+    ``trim``: (m00, m10, m11) [C, 1] each; ``spot`` [C, 1]; ``tune``:
+    {"word" [C] uint32, "block"}; ``pm_gain``, ``ctcss_word``,
+    ``ctcss_amp``, ``am_carrier``; and, each None or absent when the chain
+    lacks the stage, ``phrot``: {"b0", "nstages"}; ``alc``: {"target",
+    "gain_max", "gain_min", "d_limit", "min_magn", "mode" [C], "buf",
+    "n_modes"}; ``cessb``: {"taps1", "taps2" (ConvFIR taps, forward
+    order), "block", "ceiling"}; ``predist``: {"c_re", "c_im",
+    "env_max"}; ``interp``: {"M", "interp", "ntaps", "block", "R"}."""
+    device = resolve_device(device)
+
+    def vec(v):
+        return _f32_vec(v, device)
+    phrot = alc = cessb = predist = interp = None
+    if p.get("phrot") is not None:
+        phrot = PhaseRotator(b0=_f32(p["phrot"]["b0"], device),
+                             nstages=int(p["phrot"]["nstages"]))
+    if p.get("alc") is not None:
+        a = p["alc"]
+        alc = TxALC(**{k: _f32(a[k], device) for k in (
+            "target", "gain_max", "gain_min", "d_limit", "min_magn")},
+            mode=torch.as_tensor(np.asarray(a["mode"], np.int64).copy(),
+                                 device=device),
+            buf=int(a["buf"]), n_modes=int(a["n_modes"]))
+    if p.get("cessb") is not None:
+        a = p["cessb"]
+        cessb = OvershootControl(
+            fir1=ConvFIR.create(np.asarray(a["taps1"]), int(a["block"]),
+                                device=device),
+            fir2=ConvFIR.create(np.asarray(a["taps2"]), int(a["block"]),
+                                device=device),
+            ceiling=_f32(a["ceiling"], device))
+    if p.get("predist") is not None:
+        a = p["predist"]
+        predist = Predistorter(c_re=vec(a["c_re"]), c_im=vec(a["c_im"]),
+                               env_max=_f32(a["env_max"], device))
+    if p.get("interp") is not None:
+        a = p["interp"]
+        interp = Interpolator(M=vec(a["M"]), interp=int(a["interp"]),
+                              ntaps=int(a["ntaps"]), block=int(a["block"]),
+                              R=int(a["R"]))
+    c = p["comp"]
+    return TxChain(
+        analytic=_ols_from_numpy(p["analytic"], device), phrot=phrot,
+        preemph=Preemphasis(c=vec(p["preemph"]["c"])),
+        comp=SoftCompressor(knee=_f32(c["knee"], device),
+                            ceiling=_f32(c["ceiling"], device),
+                            gain=vec(c["gain"])),
+        alc=alc, cessb=cessb, predist=predist, interp=interp,
+        mode=torch.as_tensor(np.asarray(p["mode"], np.int64).copy(),
+                             device=device),
+        trim=tuple(vec(t) for t in p["trim"]), spot=vec(p["spot"]),
+        tune=NCO(word=phase_tensor(p["tune"]["word"], device),
+                 block=int(p["tune"]["block"])),
+        pm_gain=_f32(p["pm_gain"], device),
+        ctcss_word=_f32(p["ctcss_word"], device),
+        ctcss_amp=_f32(p["ctcss_amp"], device),
+        am_carrier=_f32(p["am_carrier"], device),
+        channels=int(p["channels"]), block=int(p["block"]),
+        block_tx=int(p["block_tx"]), audio_rate=float(p["audio_rate"]))
+
+
+_TX_STATE_KEYS = ("imd_phase", "analytic", "phrot", "preemph", "alc",
+                  "ctcss_phase", "tune_phase", "interp", "cessb")
+
+
+def tx_state_from_numpy(s: dict, device=None) -> dict:
+    """TX chain state from the numpy leaves of a ``quisk_tpu`` TxChain
+    state: the IMD and CTCSS phases (float32), the analytic filter's
+    history, the phase rotator's (x1, y1), the pre-emphasis x_prev, the
+    ALC's dict (its buffer, per-mode ``gain_now`` [C, n_modes], the float
+    carries, ``block_index`` and ``index`` int32), the tune phase (uint32),
+    the interpolator's history and CESSB's two FIR histories; empty tuples
+    for stages the chain lacks."""
+    return state_from_numpy({k: s[k] for k in _TX_STATE_KEYS}, device)
+
+
+def tx_state_to_numpy(state: dict) -> dict:
+    """TX chain state as numpy arrays, the tune phase as uint32 (the layout
+    :func:`tx_state_from_numpy` reads)."""
+    return state_to_numpy({k: state[k] for k in _TX_STATE_KEYS})
+
+
+def spectrum_from_numpy(p: dict, device=None) -> SpectrumAnalyzer:
+    """A SpectrumAnalyzer from {"window" [fft_size] (normalised, as the
+    reference holds it), "enbw_bins", "block", "hop"}."""
+    device = resolve_device(device)
+    w = np.asarray(p["window"], np.float32)
+    return SpectrumAnalyzer(window=torch.as_tensor(w.copy(), device=device),
+                            enbw_bins=_f32(p["enbw_bins"], device),
+                            fft_size=w.shape[-1], block=int(p["block"]),
+                            hop=int(p["hop"]))
+
+
+def spectrum_state_from_numpy(s: tuple, device=None) -> tuple:
+    """An analyzer's state from the reference's (psum, count) or, when
+    overlapped, (psum, count, hist_re, hist_im)."""
+    out = state_from_numpy(tuple(s[:2]), device)
+    if len(s) == 4:
+        h = np.asarray(s[2], np.float32) + 1j * np.asarray(s[3], np.float32)
+        out += state_from_numpy((h.astype(np.complex64),), device)
+    return out
+
+
+def spectrum_state_to_numpy(state: tuple) -> tuple:
+    """Inverse of :func:`spectrum_state_from_numpy`."""
+    out = state_to_numpy(tuple(state[:2]))
+    if len(state) == 3:
+        h = state[2].detach().cpu().numpy()
+        out += (h.real.astype(np.float32), h.imag.astype(np.float32))
+    return out

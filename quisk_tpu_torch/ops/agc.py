@@ -10,7 +10,8 @@ maximum by the van Herk two-pass cummax.
 
 :class:`HangAGC` and :class:`WcpAGC` (wdsp/wcpAGC.c) carry a state machine
 that decides per sample, so they run a per-sample loop over the block
-(ops/scanutil.py) with the channels vectorised.
+(ops/scanutil.py) with the channels vectorised.  So does the TX path's
+:class:`TxALC` (microphone.c:270-358).
 """
 
 from __future__ import annotations
@@ -318,3 +319,142 @@ class WcpAGC:
         new_st = dict(zip(names, carry))
         new_st["delay"] = ext[:, ext.shape[-1] - A:]
         return new_st, ext[:, :B] * mult
+
+
+_ALC_CARRY = ("gain_change", "final_gain", "next_change", "counter", "fault",
+              "block_index")
+
+
+@dataclasses.dataclass(frozen=True)
+class TxALC:
+    """TX ALC (microphone.c:270-358 ``process_alc``).
+
+    20 ms lookahead delay; when a sample would clip at the gain it sees on
+    leaving the delay, the gain ramps down linearly across the buffer to
+    land exactly at the safe gain; recovery ramps are bounded by the
+    observed headroom and by a gain-doubling time of ~5 s; the gain is
+    clamped to [0.1, 3.0] and remembered per mode (``gain_now[mode]``), so
+    returning to a mode restores its level.  Levels are normalised to 1.0
+    full scale.
+
+    As in ``quisk_tpu.ops.agc.TxALC``, the delay line stays out of the
+    per-sample recurrence (the output is the input delayed by ``buf``
+    samples times the gain trajectory) and the active mode's gain is
+    gathered once a block and scattered back once a block, so the loop
+    carries eight values per channel: the gain and ``gain_change``,
+    ``final_gain``, ``next_change``, ``counter``, ``fault``,
+    ``block_index``, ``index``.  The loop is a Python loop over time
+    (``time_scan``), ~37 tensor ops a sample.
+
+    State: ``buffer`` complex64 [C, buf]; ``gain_now`` [C, n_modes];
+    the float32 [C] carries above; ``block_index`` int32 [C]; ``index``
+    int32 0-dim."""
+
+    target: torch.Tensor
+    gain_max: torch.Tensor
+    gain_min: torch.Tensor
+    d_limit: torch.Tensor           # per-sample gain increase bound
+    min_magn: torch.Tensor          # silence floor (ref: 100 counts)
+    mode: torch.Tensor              # [C] int64 active mode per channel
+    buf: int
+    n_modes: int = 14
+
+    @classmethod
+    def create(cls, sample_rate: float, mode=0, channels: int = 1,
+               buf_ms: float = 20.0, clip_level: float = 1.0,
+               gain_max: float = 3.0, gain_min: float = 0.1,
+               double_secs: float = 5.0, n_modes: int = 14,
+               device=None) -> "TxALC":
+        device = resolve_device(device)
+        A = int(sample_rate * buf_ms / 1000.0)
+        m = np.broadcast_to(np.asarray(mode, np.int64), (channels,))
+
+        def f32(v):
+            return torch.tensor(np.float32(v), device=device)
+        return cls(target=f32(clip_level * (32767.0 - 10.0) / 32767.0),
+                   gain_max=f32(gain_max), gain_min=f32(gain_min),
+                   d_limit=f32(1.0 / (48000.0 * double_secs)),
+                   min_magn=f32(100.0 / 32758.0),
+                   mode=torch.as_tensor(m.copy(), device=device), buf=A,
+                   n_modes=n_modes)
+
+    def init_state(self, channels: int):
+        dev = self.target.device
+
+        def z(v=0.0):
+            return torch.full((channels,), v, dtype=torch.float32, device=dev)
+        return {
+            "buffer": torch.zeros((channels, self.buf), dtype=torch.complex64,
+                                  device=dev),
+            "gain_now": torch.ones((channels, self.n_modes),
+                                   dtype=torch.float32, device=dev),
+            "gain_change": z(), "final_gain": z(), "next_change": z(1e10),
+            "counter": z(), "fault": z(),
+            "block_index": torch.zeros((channels,), dtype=torch.int32,
+                                       device=dev),
+            "index": torch.zeros((), dtype=torch.int32, device=dev),
+        }
+
+    def __call__(self, state, x: torch.Tensor):
+        st, out, _ = self.trace(state, x)
+        return st, out
+
+    def trace(self, state, x: torch.Tensor):
+        """As ``__call__``, and also the per-sample clip decisions
+        [C, B] bool: (state, out, clips)."""
+        st = state
+        B = x.shape[-1]
+        A = self.buf
+        ext = torch.cat([st["buffer"], x.to(torch.complex64)], dim=-1)
+        out_raw = ext[:, :B]                                  # x delayed A
+        # |x| as mul, add, sqrt: correctly rounded element ops, so the card
+        # and the CPU see the same magnitudes and take the same branches
+        magn = torch.sqrt(x.real * x.real + x.imag * x.imag).to(torch.float32)
+        # the terms that depend on the input alone, for the whole block
+        t_over_m = self.target / torch.clamp(magn, min=1e-9)
+        silent = magn < self.min_magn
+        loud_f = (~silent).to(torch.float32)
+        silent_f = silent.to(torch.float32)
+        idx = torch.remainder(
+            st["index"].to(torch.int64)
+            + torch.arange(B, device=x.device), A).to(torch.int32)
+        g0 = st["gain_now"].gather(1, self.mode[:, None])[:, 0]
+        tgt, lo, hi = self.target, self.gain_min, self.gain_max
+        where = torch.where
+
+        def step(carry, xs):
+            g, gc, fg, nc, cnt, flt, bi = carry
+            mg, tm, sil, ld, sf, ix = xs
+            clip = mg * (g + gc * A) > tgt
+            # clip: down-ramp to land exactly at the safe gain
+            fg1 = torch.clamp(g + (tm - g) / A * A, lo, hi)
+            gc1 = (fg1 - g) / A
+            # block complete: recovery ramp from the observed headroom,
+            # bounded by the gain-doubling time
+            blk = bi == ix
+            gc2 = where(flt < A - 10, torch.clamp(nc, max=self.d_limit), gc)
+            fg2 = torch.clamp(g + gc2 * A, lo, hi)
+            gc2 = (fg2 - g) / A
+            # observe
+            cnt3 = cnt + ld
+            d3 = (tm - fg) / torch.clamp(cnt3, min=1.0)
+            nc3 = where(sil, nc, torch.minimum(nc, d3))
+            rst = clip | blk
+            gc_n = where(clip, gc1, where(blk, gc2, gc))
+            fg_n = where(clip, fg1, where(blk, fg2, fg))
+            carry = (g + gc_n, gc_n, fg_n, where(rst, 1e10, nc3),
+                     where(rst, 0.0, cnt3), where(rst, 0.0, flt + sf),
+                     where(clip, ix, bi))
+            return carry, (g, clip)
+
+        carry0 = (g0,) + tuple(st[k] for k in _ALC_CARRY)
+        carry, (gains, clips) = time_scan(
+            step, carry0, (magn, t_over_m, silent, loud_f, silent_f, idx))
+        new_st = dict(zip(_ALC_CARRY, carry[1:]))
+        new_st["index"] = ((idx[-1] + 1) % A).to(torch.int32)
+        new_st["buffer"] = ext[:, ext.shape[-1] - A:]
+        onehot = torch.nn.functional.one_hot(
+            self.mode, self.n_modes).to(torch.float32)
+        new_st["gain_now"] = (st["gain_now"]
+                              + (carry[0] - g0)[:, None] * onehot)
+        return new_st, out_raw * gains, clips

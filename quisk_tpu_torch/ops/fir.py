@@ -115,9 +115,11 @@ class ConvFIR:
     ntaps: int
     block: int
     decim: int = 1
+    complex_state: bool = True      # False: real float32 history and I/O
 
     @classmethod
-    def create(cls, taps, block: int, decim: int = 1, device=None):
+    def create(cls, taps, block: int, decim: int = 1,
+               complex_state: bool = True, device=None):
         device = resolve_device(device)
         taps = np.asarray(taps)
         if block % decim:
@@ -125,10 +127,12 @@ class ConvFIR:
         dt = np.complex64 if np.iscomplexobj(taps) else np.float32
         h_rev = np.ascontiguousarray(taps[::-1]).astype(dt)
         return cls(h_rev=torch.as_tensor(h_rev, device=device),
-                   ntaps=taps.shape[-1], block=block, decim=decim)
+                   ntaps=taps.shape[-1], block=block, decim=decim,
+                   complex_state=complex_state)
 
     def init_state(self, channels: int):
-        return torch.zeros((channels, self.ntaps - 1), dtype=torch.complex64,
+        dt = torch.complex64 if self.complex_state else torch.float32
+        return torch.zeros((channels, self.ntaps - 1), dtype=dt,
                            device=self.h_rev.device)
 
     def __call__(self, hist: torch.Tensor, x: torch.Tensor):
@@ -136,6 +140,9 @@ class ConvFIR:
         new_hist = xe[..., xe.shape[-1] - (self.ntaps - 1):]
         h = self.h_rev
         if h.is_complex():
+            y = torch.matmul(xe.to(h.dtype).unfold(-1, self.ntaps,
+                                                   self.decim), h)
+        elif not xe.is_complex():
             y = torch.matmul(xe.unfold(-1, self.ntaps, self.decim), h)
         else:
             y = torch.matmul(_stack_iq(xe).unfold(-1, self.ntaps, self.decim),

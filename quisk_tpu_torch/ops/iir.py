@@ -9,7 +9,9 @@ the last output sample.  Long blocks (B >= 2048, B % 128 == 0, scalar
 lower-triangular decay matmul within chunks plus a short scan over chunk
 carries, so the sums group as the reference's do; ``apply_tm`` is the same with
 time on axis -2 and channels last.  :class:`Biquad` runs
-the same log-step scan over 2x2 affine maps.
+the same log-step scan over 2x2 affine maps.  The TX path's
+:class:`Preemphasis` is a first difference and :class:`PhaseRotator` a
+cascade of first-order allpass sections on the same scan.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from quisk_tpu_torch._device import resolve_device
 
 
 def affine_scan(A: torch.Tensor, Bv: torch.Tensor, dim: int = -1):
@@ -266,3 +270,66 @@ class Biquad:
         s0 = torch.stack([y1, y2], dim=-1)                   # [C, 2]
         y = (torch.einsum("bij,cj->cbi", A, s0) + bv)[..., 0]
         return (x[:, -1], x[:, -2], y[:, -1], y[:, -2]), y
+
+
+@dataclasses.dataclass(frozen=True)
+class Preemphasis:
+    """First-difference pre-emphasis y[n] = x[n] - c*x[n-1] (~6 dB/octave,
+    microphone.c:452-465).  ``c`` is 0-dim or [C] per channel; c = 0 is an
+    exact pass-through.  State is x_prev [C]."""
+
+    c: torch.Tensor
+
+    @classmethod
+    def create(cls, c=0.97, device=None):
+        return cls(c=torch.as_tensor(np.array(c, np.float32),
+                                     device=resolve_device(device)))
+
+    def init_state(self, channels: int) -> torch.Tensor:
+        return torch.zeros((channels,), dtype=torch.float32,
+                           device=self.c.device)
+
+    def __call__(self, x_prev: torch.Tensor, x: torch.Tensor):
+        xm1 = torch.cat([x_prev[:, None], x[:, :-1]], dim=-1)
+        c = self.c if self.c.ndim == 0 else self.c[:, None]
+        return x[:, -1], x - c * xm1
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseRotator:
+    """Cascaded first-order allpass phase rotator (wdsp/iir.c:557-640):
+    ``nstages`` sections y[n] = b0*x[n] + x[n-1] - b0*y[n-1] with
+    b0 = (g-1)/(g+1), g = tan(pi*fc/fs) (TXA default fc = 338 Hz, 8
+    stages) on the real mic audio, to disperse speech phase and lower the
+    peak-to-average ratio before clipping.  Each section is the recurrence
+    y[n] = (-b0)*y[n-1] + w[n], w[n] = b0*x[n] + x[n-1], run by
+    :func:`first_order_scan`.
+
+    State: (x1, y1) each [nstages, C], the per-stage trailing samples."""
+
+    b0: torch.Tensor
+    nstages: int
+
+    @classmethod
+    def create(cls, fc_hz: float = 338.0, fs: float = 48000.0,
+               nstages: int = 8, device=None):
+        g = float(np.tan(np.pi * fc_hz / fs))
+        return cls(b0=torch.tensor(np.float32((g - 1.0) / (g + 1.0)),
+                                   device=resolve_device(device)),
+                   nstages=int(nstages))
+
+    def init_state(self, channels: int):
+        z = torch.zeros((self.nstages, channels), dtype=torch.float32,
+                        device=self.b0.device)
+        return z, z
+
+    def __call__(self, state, x: torch.Tensor):
+        x1, y1 = state
+        nx1, ny1 = [], []
+        for n in range(self.nstages):
+            w = self.b0 * x + torch.cat([x1[n][:, None], x[:, :-1]], dim=-1)
+            y = first_order_scan(w, -self.b0, 1.0, y1[n])
+            nx1.append(x[:, -1])
+            ny1.append(y[:, -1])
+            x = y
+        return (torch.stack(nx1), torch.stack(ny1)), x

@@ -119,6 +119,14 @@ def test_port_sources_cover_the_pfb_and_conditioner_modules():
         assert "torch/" not in text
 
 
+def test_port_sources_cover_the_tx_and_spectrum_modules():
+    root = Path(__file__).resolve().parents[1] / "quisk_tpu_torch"
+    rel = {str(p.relative_to(root)) for p in root.rglob("*.py")}
+    assert {"tx/chain.py", "tx/eer.py", "tx/ptt.py", "tx/puresignal.py",
+            "tx/__init__.py", "ops/compress.py", "ops/eq.py",
+            "ops/spectrum.py"} <= rel
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(
                              Path(__file__).resolve().parents[1])))
