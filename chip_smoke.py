@@ -17,6 +17,8 @@ samples a block, mode quarters USB/LSB/AM/FM, polyphase sums, stage-2 IDFT
 and demodulators in hand-written kernels) with the critically-sampled
 channelizer beside it.  Then the 1024-channel transmit chain, the TX->RX
 loopback over the front kernel, PureSignal and the spectrum services.
+Then the two PLL demodulators on their hand-written kernel, each through
+the receive chain's EXT slot at 1024 channels, and the remaining DSP ops.
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit; build every kernel in
@@ -131,15 +133,42 @@ Phases, each fatal on failure:
 19. the spectrum services at 1024 channels against the CPU: the analyzer
     (fft 2048, disjoint and 50% overlap) within rtol 1e-4 of the CPU's
     power, the S-meter and measure_frequency, ZoomSpectrum (16x) in its
-    passband; and their times.
+    passband; and their times;
+20. the PLL kernel (csrc/pll_demod.cu) in both modes, sync AM and PLL FM,
+    against its plain version at shapes off the paths' (C not a multiple
+    of its 32-channel block, B = 1, odd B, a short last tile; rows with a
+    carrier >= 100 dB or within 1e-4 of the peak, rows of noise alone by
+    RMS), and a block cut in two calls at an odd sample equal to one
+    call, bit for bit;
+21. the PLL-NFM receiver (nfm_config with ext_demod="pll_fm": deviation 5
+    kHz, CTCSS notch at 100 Hz; every row EXT; an FM station with voice
+    and a 100 Hz tone on the even rows, 1e-4 noise on the odd rows) and
+    the sync-AM flagship (flagship_config with ext_demod="sync_am", bw
+    150 Hz; modes USB/LSB/EXT/FM; an AM station 40 Hz off its carrier on
+    every EXT row) for 6 blocks each: one front and one PLL launch a
+    block, rows 0-7 against the CPU chain started from the card chain's
+    state at block 2 (> 90 dB, FM rows by RMS), the squelch open on the
+    station rows only, the CTCSS line under the voice on row 0, the voice
+    recovered on row 2 (> 6 dB); the kernel against its plain version on
+    each path's own [1024, 2048] demod input;
+22. timing of both paths (events, host clock, idle share), the PLL-NFM
+    step's stages by the port's StageTimer, and the kernel in both modes
+    with its plain version and bound;
+23. the spectral noise blanker ([1024, 2048] audio with impulses, fft
+    256), PartitionedOLS (10001 taps, block 512, C=1024: the FDL is 168
+    MB) and the diversity combiner ([1024, 2, 2048], null-steering
+    weights) against the CPU (SNB >= 90 dB, OLS within 1e-4, also of
+    OverlapSaveFIR on the card), and their times.
 
-Phases 15-19 draw from an RNG stream of their own (SEED + 2).
+Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
+20-23 from another (SEED + 3).
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
 name and power limit and one
 JSON object of kernels (one entry per kernel and path shape: the front
-kernel's plain mode has one for the flagship and one for the NFM path);
+kernel's plain mode has one for the flagship and one for the NFM path, the
+PLL kernel one for each mode);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--out FILE`` also writes every number measured to FILE as JSON.
@@ -170,14 +199,21 @@ from quisk_tpu_torch.ops.fused_front import (fused_tune_decimate,
                                              fused_tune_decimate_plain,
                                              fused_tune_decimate_reference)
 from quisk_tpu_torch.ops import pfb_kernels as pk
+from quisk_tpu_torch.ops import diversity, pll
 from quisk_tpu_torch.ops.channelizer import PFBChannelizer, PFBRxPipeline
 from quisk_tpu_torch.ops.agc import TxALC
+from quisk_tpu_torch.ops.demod import PLLFMDemod, register_ext_demod
+from quisk_tpu_torch.ops.fir import OverlapSaveFIR, PartitionedOLS
+from quisk_tpu_torch.ops.noise import SpectralNoiseBlanker
+from quisk_tpu_torch.ops.nr import SyncAMDemod
 from quisk_tpu_torch.ops.spectrum import (SpectrumAnalyzer, ZoomSpectrum,
                                           measure_frequency)
 from quisk_tpu_torch.rx import RxChain, RxChainConfig
 from quisk_tpu_torch.tx import TxChain, TxChainConfig
 from quisk_tpu_torch.tx.puresignal import (Predistorter, SimulatedPA,
                                            two_tone_imd_db)
+from quisk_tpu_torch.oracle import dsp
+from quisk_tpu_torch.utils.profiling import StageTimer
 
 FS = 960000.0
 C = 1024
@@ -291,7 +327,8 @@ def add_impulses(rng, x: np.ndarray, every: int = 7, n: int = 5,
 def reset_launches() -> None:
     for fn in (fused_tune_decimate, fused_tune_decimate_gained,
                fused_tune_decimate_nb, pk.pfb_poly_oversampled,
-               pk.pfb_poly_critical, pk.pfb_demod_call):
+               pk.pfb_poly_critical, pk.pfb_demod_call, pll.pll_sync_am,
+               pll.pll_fm):
         fn.launches = 0
 
 
@@ -2059,46 +2096,12 @@ def phase_timing_tx(report: dict, smi: str, txr: dict) -> None:
                            "launches_step": step_launches, "idle": idle}
 
 
-def fir_stream(x: np.ndarray, taps: np.ndarray) -> np.ndarray:
-    """y[n] = sum_k h[k] x[n-k] from zero history, float64."""
-    return np.convolve(x, taps, mode="full")[:len(x)]
-
-
-def frac_align_snr(ref: np.ndarray, test: np.ndarray, max_lag: int = 2048,
-                   skip: int = 0) -> float:
-    """SNR of ``test`` against ``ref`` after a fractional delay and gain
-    alignment at the cross-correlation peak (the loopback oracle's
-    measure, after quisk_tpu/oracle/dsp.py:113)."""
-    r = np.asarray(ref, np.float64)[skip:]
-    t = np.asarray(test, np.float64)[skip:]
-    n = min(len(r), len(t))
-    r, t = r[:n] - r[:n].mean(), t[:n] - t[:n].mean()
-    N = 1 << int(np.ceil(np.log2(2 * n)))
-    xc = np.fft.irfft(np.fft.rfft(r, N) * np.conj(np.fft.rfft(t, N)), N)
-    lags = np.concatenate([np.arange(0, max_lag + 1), np.arange(-max_lag, 0)])
-    k = int(np.argmax(np.abs(np.concatenate([xc[:max_lag + 1],
-                                             xc[-max_lag:]]))))
-    lag = lags[k]
-    ym1, y0, yp1 = xc[(lag - 1) % N], xc[lag % N], xc[(lag + 1) % N]
-    den = ym1 - 2 * y0 + yp1
-    mu = float(np.clip(0.5 * (ym1 - yp1) / den if abs(den) > 1e-30 else 0.0,
-                       -1, 1))
-    d = lag + mu
-    f = np.fft.rfftfreq(N)
-    t_al = np.fft.irfft(np.fft.rfft(t, N) * np.exp(-2j * np.pi * f * d),
-                        N)[:n]
-    guard = int(np.ceil(abs(d))) + 8
-    a, b = r[guard:n - guard], t_al[guard:n - guard]
-    b = np.dot(a, b) / np.dot(b, b) * b
-    return float(10 * np.log10(np.mean(a ** 2) / np.mean((a - b) ** 2)))
-
-
 def loopback_oracle(voice: np.ndarray, fm: bool) -> np.ndarray:
     """What the RX should hear (tests/test_tx.py:101-117): the TX's own
     bandpassed audio; for FM its difference through the 300 Hz
     de-emphasis one-pole."""
     taps = design.bandpass_analytic(513, 300.0, 2700.0, 48000.0)
-    bp = fir_stream(voice.astype(np.float64), np.real(taps) * 2.0)
+    _, bp = dsp.fir_stream(voice.astype(np.float64), np.real(taps) * 2.0)
     if not fm:
         return bp
     a = np.exp(-2 * np.pi * 300.0 / 48000.0)
@@ -2142,7 +2145,7 @@ def phase_loopback(report: dict, rng) -> dict:
     assert nl == {"plain": LOOP_BLOCKS, "gained": 0, "nb": 0}, nl
     aud = torch.cat(audio, dim=-1).numpy()
     assert np.all(np.isfinite(aud))
-    snr = [frac_align_snr(loopback_oracle(voice[r], TX_MODES[r] ==
+    snr = [dsp.frac_align_snr(loopback_oracle(voice[r], TX_MODES[r] ==
                                           int(Mode.FM)), aud[r],
                           skip=4 * AUDIO_BLOCK) for r in range(8)]
     print("  loopback voice SNR, rows 0-7 (USB, FM, ...), dB: "
@@ -2293,6 +2296,516 @@ def phase_spectrum(report: dict, smi: str, rng) -> None:
     report["spectrum"] = {**out, "ms": times}
 
 
+# ------------------------------------------------------------------ slice 5
+# The PLL demods ride the receive chain's EXT slot (RxChainConfig.ext_demod,
+# MixedDemod.create calls the registered factory with (sample_rate,
+# channels, device)); the package registers nothing, so this script does.
+PLL_FM_KW = dict(deviation_hz=5000.0, ctcss_hz=100.0)
+SYNC_AM_BW_HZ = 150.0
+SYNC_MODES = [int(Mode.USB), int(Mode.LSB), int(Mode.EXT), int(Mode.FM)]
+SYNC_MODE = [SYNC_MODES[i % 4] for i in range(C)]
+PLL_BLOCKS = 6
+# Both chains start from empty histories, and the loops acquire on the
+# filters' first, tiny outputs, where cuFFT and the CPU's FFT differ in
+# relative terms; the sync-AM DC tracker (pole 0.9995) keeps that for
+# thousands of samples.  So the CPU chain starts from the card chain's
+# state of rows 0-7 at block PLL_CARRY_AT and runs the rest.
+PLL_CARRY_AT = 2
+# The kernel against its plain version (the same float32 operations in the
+# same order, full-precision cosf / sinf / atan2f): rows with a carrier
+# >= 100 dB or within 1e-4 of the peak; a loop on noise alone wraps at
+# +-pi, where a one-ulp difference slips a cycle: by RMS within 0.1 dB.
+PLL_DB = 100.0
+PLL_TOL = 1e-4
+# (C, B): C off the kernel's 32-channel block, B = 1, odd B, a tile tail
+PLL_SHAPES = ((37, 1), (37, 777), (33, 2048), (70, 64))
+PLL_SPLIT = (37, 777, 301)       # one call against two, cut at sample 301
+SYNC_VOICE_DB = 6.0             # sync-AM row 2 against the voice sent
+SNB_DB = 90.0
+POLS_TAPS, POLS_BLOCK, POLS_BLOCKS = 10001, 512, 4
+POLS_TOL = 1e-4
+DIV_RTOL = 1e-5
+
+
+def register_pll_demods() -> None:
+    register_ext_demod("pll_fm", lambda fs, ch, dev: PLLFMDemod.create(
+        fs, device=dev, **PLL_FM_KW))
+    register_ext_demod("sync_am", lambda fs, ch, dev: SyncAMDemod.create(
+        fs, bw_hz=SYNC_AM_BW_HZ, device=dev))
+
+
+def pll_launches() -> dict:
+    return {"sync_am": pll.pll_sync_am.launches, "pll_fm": pll.pll_fm.launches}
+
+
+def rows_state(tree, rows: int, dev):
+    """The first ``rows`` channels of a chain state, on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: rows_state(v, rows, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(rows_state(v, rows, dev) for v in tree)
+    return tree[:rows].to(dev)
+
+
+def check_pll(mode: str, x, st, coef, carrier) -> dict:
+    """The kernel against its plain version on the same tensors: rows in
+    ``carrier`` sample by sample, the others by RMS; the carried states
+    alike.  One launch."""
+    fn = pll.pll_sync_am if mode == "sync_am" else pll.pll_fm
+    n0 = fn.launches
+    ks, ky = fn(x, st, coef)
+    ps, py = pll.pll_demod_plain(mode, x, st, coef)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1, (mode, fn.launches, n0)
+    assert bool(torch.isfinite(ky).all())
+    peak = float(py.abs().max())
+    err = float((ky - py).abs().max())
+    kd, pd = ky.double(), py.double()
+    e2 = (kd - pd).pow(2).mean(-1)
+    row_db = 10 * torch.log10(pd.pow(2).mean(-1) / e2.clamp_min(1e-300))
+    row_err = (kd - pd).abs().max(-1).values
+    carrier = torch.as_tensor(carrier, device=x.device)
+    ok = (row_db >= PLL_DB) | (row_err <= PLL_TOL * peak)
+    assert bool(ok[carrier].all()), (mode, tuple(x.shape),
+                                     float(row_db[carrier].min()))
+    rms_db = 10 * torch.log10(kd.pow(2).mean(-1) / pd.pow(2).mean(-1))
+    noise = ~carrier
+    slips = int((noise & ~ok).sum())
+    assert bool((rms_db[noise & ~ok].abs() < FM_NOISE_RMS_DB).all()), (
+        mode, float(rms_db[noise & ~ok].abs().max()))
+    for a, b, c in zip(ks, ps, ("ph", "fr", "dc")):
+        d = (a - b).abs()
+        assert bool((d[carrier] <= 1e-4 * (1 + b[carrier].abs())).all()), c
+    bits = bool(torch.equal(ky, py)) and all(torch.equal(a, b)
+                                             for a, b in zip(ks, ps))
+    return {"max_abs_err": err, "peak": peak, "bit_equal": bits,
+            "carrier_min_db": float(row_db[carrier].min().clamp(max=999.0)),
+            "noise_rows_split": slips}
+
+
+def pll_test_input(rng, C: int, B: int, mode: str, dev):
+    """Noise on every row, a carrier on the even rows (AM, 40 Hz off, or
+    FM with a 700 Hz tone), a non-zero state."""
+    t = np.arange(B) / 48000.0
+    x = 0.1 * (rng.standard_normal((C, B)) + 1j * rng.standard_normal((C, B)))
+    if mode == "sync_am":
+        car = (1 + 0.5 * np.sin(2 * np.pi * 700 * t)) * np.exp(
+            2j * np.pi * 40.0 * t)
+    else:
+        car = np.exp(1j * 2 * np.pi * 3000.0 / 48000.0 * np.cumsum(
+            np.sin(2 * np.pi * 700 * t)))
+    x[0::2] += car
+    carrier = np.arange(C) % 2 == 0
+    ph = rng.uniform(-0.5, 0.5, C)
+    st = [torch.as_tensor(ph.astype(np.float32), device=dev),
+          torch.zeros(C, dtype=torch.float32, device=dev)]
+    if mode == "sync_am":
+        st.append(torch.full((C,), 0.9, dtype=torch.float32, device=dev))
+    return (torch.as_tensor(x.astype(np.complex64), device=dev), tuple(st),
+            carrier)
+
+
+def pll_ops(dev) -> dict:
+    return {"sync_am": SyncAMDemod.create(48000.0, bw_hz=SYNC_AM_BW_HZ,
+                                          device=dev),
+            "pll_fm": PLLFMDemod.create(48000.0, device=dev, **PLL_FM_KW)}
+
+
+def phase_pll_kernel(report: dict, rng) -> None:
+    """csrc/pll_demod.cu in both modes against its plain version at shapes
+    off the paths': C not a multiple of the 32-channel block, B = 1, odd
+    B, a last tile of 64; and a block cut in two calls at an odd sample
+    equal to one call, bit for bit."""
+    dev = torch.device(DEVICE)
+    out = {}
+    for mode, op in pll_ops(dev).items():
+        coef = op.coef()
+        fn = pll.pll_sync_am if mode == "sync_am" else pll.pll_fm
+        res = []
+        for Cs, Bs in PLL_SHAPES:
+            x, st, car = pll_test_input(rng, Cs, Bs, mode, dev)
+            r = check_pll(mode, x, st, coef, car)
+            print(f"  PLL kernel {mode} C={Cs} B={Bs}: max|kernel-plain| "
+                  f"{r['max_abs_err']:.2e} (peak {r['peak']:.3f}), carrier "
+                  f"rows >= {r['carrier_min_db']:.1f} dB, bit-equal "
+                  f"{r['bit_equal']}, noise rows split "
+                  f"{r['noise_rows_split']}", flush=True)
+            res.append({"C": Cs, "B": Bs, **r})
+        Cs, Bs, cut = PLL_SPLIT
+        x, st, _ = pll_test_input(rng, Cs, Bs, mode, dev)
+        n0 = fn.launches
+        s1, y1 = fn(x, st, coef)
+        sa, ya = fn(x[:, :cut], st, coef)
+        sb, yb = fn(x[:, cut:], sa, coef)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 3
+        assert torch.equal(torch.cat([ya, yb], dim=-1), y1), mode
+        assert all(torch.equal(a, b) for a, b in zip(s1, sb)), mode
+        print(f"  PLL kernel {mode} C={Cs} B={Bs}: two calls cut at {cut} "
+              f"equal one call bit for bit", flush=True)
+        out[mode] = res
+    report["pll_kernel"] = out
+
+
+def pll_nfm_config() -> RxChainConfig:
+    return dataclasses.replace(nfm_config(), ext_demod="pll_fm")
+
+
+def sync_am_config() -> RxChainConfig:
+    return dataclasses.replace(flagship_config(), ext_demod="sync_am")
+
+
+def pll_nfm_blocks(rng, tune, nblk: int, B: int):
+    """Every row noise, 1e-4 of it on odd rows (RF under the squelch's -60
+    dB: closed); on every even row an FM station (2.5 kHz deviation) of
+    seeded voice with a 100 Hz CTCSS tone at 0.15."""
+    n = nblk * B
+    t = np.arange(n, dtype=np.float64) / FS_NFM
+    voice = voice_like(rng, n, 1, band=(300.0, 2500.0), fs=FS_NFM)[0]
+    mod = 0.5 * voice + 0.15 * np.sin(2 * np.pi * 100.0 * t)
+    dphi = 2 * np.pi * 2500.0 * np.cumsum(mod) / FS_NFM
+    blocks = noise_blocks(rng, nblk, B)
+    level = np.where(np.arange(C) % 2 == 0, 1.0, 1e-4).astype(np.float32)
+    tn = np.asarray(tune)[0::2, None]
+    for i, x in enumerate(blocks):
+        x *= level[:, None]
+        sl = slice(i * B, (i + 1) * B)
+        x[0::2] += (3.0 * np.exp(1j * (2 * np.pi * tn * t[sl] + dphi[sl]))
+                    ).astype(np.complex64)
+    return blocks, voice
+
+
+def sync_am_blocks(rng, nblk: int, B: int):
+    """Noise on every row; on every EXT row an AM station (depth 0.5,
+    amplitude 3) of seeded voice, its carrier 40 Hz off the channel's
+    dial."""
+    n = nblk * B
+    voice = voice_like(rng, n, 1, band=(300.0, 2500.0), fs=FS)[0]
+    voice = voice / np.abs(voice).max()
+    blocks = noise_blocks(rng, nblk, B)
+    rows = np.flatnonzero(np.asarray(SYNC_MODE) == int(Mode.EXT))
+    f = np.asarray(TUNE)[rows, None] + 40.0
+    for i, x in enumerate(blocks):
+        t = np.arange(i * B, (i + 1) * B, dtype=np.float64) / FS
+        env = 3.0 * (1.0 + 0.5 * voice[i * B:(i + 1) * B])
+        ang = np.mod(2 * np.pi * f * t, 2 * np.pi)
+        x[rows] += (env * np.exp(1j * ang)).astype(np.complex64)
+    return blocks, voice
+
+
+def run_pll_path(label: str, chain, cpu, blocks, modes, strict_rows):
+    """The path on the card for every block (one front and one PLL launch
+    a block), then the CPU chain from the card's rows 0-7 state at block
+    PLL_CARRY_AT, compared on rows 0-7."""
+    reset_launches()
+    st = chain.init_state()
+    audio, mid = [], None
+    for i, x in enumerate(blocks):
+        if i == PLL_CARRY_AT:
+            mid = rows_state(st, 8, torch.device("cpu"))
+        st, a = chain.step(st, torch.as_tensor(x, device=chain.device))
+        audio.append(a)
+    torch.cuda.synchronize()
+    n, npll = launches(), pll_launches()
+    print(f"  {label}: {len(blocks)} blocks, front launches {n}, PLL "
+          f"launches {npll}", flush=True)
+    mode = "pll_fm" if isinstance(chain.demod.ext, PLLFMDemod) else "sync_am"
+    assert n == {"plain": len(blocks), "gained": 0, "nb": 0}, n
+    assert npll == {"sync_am": 0, "pll_fm": 0, mode: len(blocks)}, npll
+    for a in audio:
+        assert a.shape == (C, AUDIO_BLOCK) and bool(torch.isfinite(a).all())
+
+    def cpu_run():
+        s, out = mid, []
+        for x in blocks[PLL_CARRY_AT:]:
+            s, a = cpu.step(s, torch.as_tensor(x[:8]))
+            out.append(a)
+        return out
+
+    cpu_audio = one_thread(cpu_run)
+    match = compare_with_cpu(audio[PLL_CARRY_AT:], cpu_audio, modes[:8], 0,
+                             CPU_MATCH_DB, label, strict_rows=strict_rows)
+    return st, audio, {"launches": n, "pll_launches": npll,
+                       "cpu_match": match}
+
+
+def phase_pll_paths(report: dict, rng) -> dict:
+    """The PLL-NFM receiver (nfm_config, every row EXT with pll_fm) and the
+    sync-AM flagship (flagship_config, modes USB/LSB/EXT/FM with sync_am)
+    at 1024 channels against the CPU chain on rows 0-7, what they hear,
+    and the PLL kernel against its plain version on each path's own
+    [1024, 2048] demod input."""
+    dev = torch.device(DEVICE)
+    register_pll_demods()
+    tune_nfm = [(-FS_NFM / 4 + (i + 0.5) * FS_NFM / (2 * C))
+                for i in range(C)]
+    nfm = RxChain.create(pll_nfm_config(), tune_hz=tune_nfm,
+                         mode=int(Mode.EXT), device=dev)
+    assert isinstance(nfm.demod.ext, PLLFMDemod) and nfm.front.decim == 4
+    n_blocks, voice = pll_nfm_blocks(rng, tune_nfm, PLL_BLOCKS,
+                                     nfm.block_in)
+    cpu = RxChain.create(dataclasses.replace(pll_nfm_config(), channels=8),
+                         tune_hz=tune_nfm[:8], mode=int(Mode.EXT),
+                         device="cpu")
+    nst, naudio, nres = run_pll_path("PLL-NFM", nfm, cpu, n_blocks,
+                                     [int(Mode.EXT)] * C, ())
+    m = nres["cpu_match"]
+    assert m["sample_by_sample"] >= 4 * (PLL_BLOCKS - PLL_CARRY_AT), m
+    hold = nst["fm_sq"][0]
+    assert bool((hold[0::2] > 0).all()) and bool((hold[1::2] == 0).all())
+    assert bool((naudio[-1][1::2] == 0).all())
+    # what row 0 hears: the CTCSS tone notched under the voice
+    a0 = torch.cat([a[0] for a in naudio[2:]]).cpu().numpy()
+    f = np.fft.rfftfreq(a0.size, 1.0 / nfm.fs_audio)
+    A = np.abs(np.fft.rfft(a0 * np.hanning(a0.size)))
+    ctcss = A[np.abs(f - 100.0) < 3.0].max()
+    voice_band = A[(f > 300.0) & (f < 2500.0)].mean()
+    print(f"  PLL-NFM row 0: CTCSS line {20 * np.log10(ctcss / voice_band):.1f}"
+          f" dB against the mean voice-band bin", flush=True)
+    assert ctcss < voice_band, (ctcss, voice_band)
+    nres["ctcss_vs_voice_db"] = float(20 * np.log10(ctcss / voice_band))
+
+    sync = RxChain.create(sync_am_config(), tune_hz=TUNE, mode=SYNC_MODE,
+                          device=dev)
+    assert isinstance(sync.demod.ext, SyncAMDemod)
+    s_blocks, s_voice = sync_am_blocks(rng, PLL_BLOCKS, sync.block_in)
+    cpu = RxChain.create(dataclasses.replace(sync_am_config(), channels=8),
+                         tune_hz=TUNE[:8], mode=SYNC_MODE[:8], device="cpu")
+    sst, saudio, sres = run_pll_path("sync-AM flagship", sync, cpu, s_blocks,
+                                     SYNC_MODE, ())
+    m = sres["cpu_match"]
+    assert m["sample_by_sample"] >= 6 * (PLL_BLOCKS - PLL_CARRY_AT), m
+    # what row 2 hears: the voice (300-2500 Hz on both sides, the audio
+    # ~1270 samples late; the AGC's varying gain bounds the figure)
+    sos = sig.butter(4, (300.0, 2500.0), btype="bandpass", fs=48000.0,
+                     output="sos")
+    a2 = sig.sosfiltfilt(sos, torch.cat([a[2] for a in saudio]).cpu().numpy())
+    v = sig.sosfiltfilt(sos, s_voice.reshape(-1, 20).mean(-1))
+    snr = dsp.frac_align_snr(v, a2, max_lag=2048, skip=2 * AUDIO_BLOCK)
+    print(f"  sync-AM row 2: voice recovered at {snr:.1f} dB", flush=True)
+    assert snr > SYNC_VOICE_DB, snr
+    sres["voice_snr_db"] = snr
+
+    # the kernel on each path's own demod input (the block after the run)
+    kern = {}
+    for label, chain, st, x in (("pll_fm", nfm, nst, n_blocks[0]),
+                                ("sync_am", sync, sst, s_blocks[0])):
+        xd = torch.as_tensor(x, device=dev)
+        _, y = chain.front(st["front"], xd)
+        _, y = chain.bp(st["bp"], y)
+        ext_st = tuple(st["demod"][2][:3 if label == "sync_am" else 2])
+        carrier = (np.arange(C) % 2 == 0 if label == "pll_fm" else
+                   np.asarray(SYNC_MODE) == int(Mode.EXT))
+        t0 = time.perf_counter()
+        r = check_pll(label, y, ext_st, chain.demod.ext.coef(), carrier)
+        print(f"  PLL kernel {label} on the path's input [{C}, "
+              f"{y.shape[1]}]: max|kernel-plain| {r['max_abs_err']:.2e} "
+              f"(peak {r['peak']:.3f}), carrier rows >= "
+              f"{r['carrier_min_db']:.1f} dB, bit-equal {r['bit_equal']}, "
+              f"noise rows split {r['noise_rows_split']} (check "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        kern[label] = {**r, "x": y, "st": ext_st,
+                       "coef": chain.demod.ext.coef()}
+    report["pll_nfm_path"] = nres
+    report["sync_am_path"] = sres
+    return {"nfm": nfm, "nfm_blocks": n_blocks, "sync": sync,
+            "sync_blocks": s_blocks, "kern": kern,
+            "launches": {"pll_fm": nres["pll_launches"]["pll_fm"],
+                         "sync_am": sres["pll_launches"]["sync_am"]}}
+
+
+def pll_bound(C_: int, B: int, mode: str) -> dict:
+    """x read once (8 B a sample), y written once (4 B), the state read
+    and written, coef; operations: the step's float32 arithmetic (complex
+    product 6, loop update 7, wrap 2, output 4 for sync AM and 2 for FM)
+    plus cos, sin and atan2 counted one each."""
+    n_state = 3 if mode == "sync_am" else 2
+    nbytes = C_ * B * 12 + 2 * n_state * C_ * 4 + 16
+    flops = C_ * B * (3 + 6 + 7 + 2 + (4 if mode == "sync_am" else 2))
+    return bound(nbytes, flops)
+
+
+def phase_timing_pll(report: dict, smi: str, paths: dict) -> dict:
+    """Both paths' steps (events, host clock, idle share), the PLL-NFM
+    step's stages by StageTimer, and the kernel in both modes at the
+    paths' shape with its plain version and bound."""
+    dev = torch.device(DEVICE)
+    out = {}
+    for label, chain, blocks, budget in (
+            ("PLL-NFM", paths["nfm"], paths["nfm_blocks"], 
+             paths["nfm"].block_in / FS_NFM * 1e3),
+            ("sync-AM flagship", paths["sync"], paths["sync_blocks"],
+             paths["sync"].block_in / FS * 1e3)):
+        ms, host = step_ms(chain, blocks, 20)
+        idle = device_idle(label, chain, blocks, ms)
+        print(f"  {label} step {ms:.4f} ms/block (device events), "
+              f"{host:.4f} ms/block (host clock), real-time factor "
+              f"{budget / ms:.2f}x of {budget:.2f} ms", flush=True)
+        out[label] = {"ms_per_block": ms, "host_ms_per_block": host,
+                      "realtime_factor": budget / ms, "idle": idle}
+    # the PLL-NFM step's stages by the port's StageTimer (host clock, each
+    # mark synchronising the card), 10 blocks
+    nfm = paths["nfm"]
+    xs = [torch.as_tensor(b, device=dev) for b in paths["nfm_blocks"][:2]]
+    st = nfm.init_state()
+    tm = StageTimer()
+    for i in range(12):
+        if i == 2:
+            tm.reset()
+        x = xs[i % 2]
+        torch.cuda.synchronize()
+        tm.start()
+        st["front"], y = nfm.front(st["front"], x)
+        tm.mark("front kernel", y)
+        st["bp"], y = nfm.bp(st["bp"], y)
+        tm.mark("channel filter", y)
+        rf = nfm.fm_sq.measure(y)
+        st["demod"], a = nfm.demod(st["demod"], y)
+        tm.mark("demod (PLL FM kernel)", a)
+        st["agc"], a = nfm.agc(st["agc"], a)
+        tm.mark("agc", a)
+        st["fm_sq"], a = nfm.fm_sq(st["fm_sq"], a, rf)
+        tm.mark("fm squelch", a)
+    print("  PLL-NFM stages by StageTimer:\n    " + tm.report().replace(
+        "\n", "\n    "), flush=True)
+    out["PLL-NFM"]["stages_ms"] = {k: v / tm.counts[k] * 1e3
+                                   for k, v in tm.totals.items()}
+    # the EXT demod's parts and the whole mixed demod, by CUDA events
+    k = paths["kern"]["pll_fm"]
+    ext, x = nfm.demod.ext, k["x"]
+    est = ext.init_state(C)
+    _, w = pll.pll_fm(x, k["st"], k["coef"])
+    dst = nfm.init_state()["demod"]
+    parts = {"pll kernel": cuda_ms(lambda: pll.pll_fm(x, k["st"], k["coef"]),
+                                   10),
+             "de-emphasis": cuda_ms(lambda: ext.deemph(est[2], w), 10),
+             "ctcss notch": cuda_ms(lambda: ext.notch(est[3], w), 10),
+             "mixed demod": cuda_ms(lambda: nfm.demod(dst, x), 10)}
+    print("  PLL-NFM demod parts by CUDA events (ms): " + ", ".join(
+        f"{n} {v:.4f}" for n, v in parts.items()), flush=True)
+    out["PLL-NFM"]["demod_parts_ms"] = parts
+    times = {}
+    for mode, k in paths["kern"].items():
+        fn = pll.pll_sync_am if mode == "sync_am" else pll.pll_fm
+        x, s, coef = k["x"], k["st"], k["coef"]
+        t = {"ms": cuda_ms(lambda: fn(x, s, coef), 20),
+             "plain_ms": cuda_ms(lambda: pll.pll_demod_plain(mode, x, s,
+                                                              coef),
+                                 2, warmup=1),
+             **pll_bound(x.shape[0], x.shape[1], mode), "library_ms": None}
+        print(f"  pll_demod {mode} [{x.shape[0]}, {x.shape[1]}]: "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, library "
+              f"none, bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+              f"({t['mbytes']:.1f} MB, {t['gflop']:.3f} GFLOP)", flush=True)
+        times[mode] = t
+    out["kernel"] = times
+    report["timing_pll"] = out
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {m: {k: t[k] for k in keys} for m, t in times.items()}
+
+
+def phase_slice5_ops(report: dict, smi: str, rng) -> None:
+    """The spectral blanker, the partitioned OLS filter and the diversity
+    combiner at 1024 channels against the CPU (rows 0-7, or all), timed."""
+    dev = torch.device(DEVICE)
+    out, times = {}, {}
+    # SNB: tones + noise, impulses on every 7th row, 3 blocks
+    snb = SpectralNoiseBlanker.create(AUDIO_BLOCK, device=dev)
+    csnb = SpectralNoiseBlanker.create(AUDIO_BLOCK, device="cpu")
+    n = 3 * AUDIO_BLOCK
+    t = np.arange(n) / 48000.0
+    a = (np.sin(2 * np.pi * rng.uniform(300, 3000, (C, 1)) * t)
+         + 0.1 * rng.standard_normal((C, n))).astype(np.float32)
+    imp = np.arange(0, C, 7)
+    for r in imp:
+        for h in rng.integers(0, n - 8, 6):
+            a[r, h:h + 8] += 30.0 * rng.standard_normal(8)
+    st, cst = snb.init_state(C), csnb.init_state(8)
+    worst, left = [], np.zeros(8, bool)
+    for i in range(3):
+        blk = torch.as_tensor(a[:, i * AUDIO_BLOCK:(i + 1) * AUDIO_BLOCK])
+        ratio = snb.frame_ratio(st, blk.to(dev))[:8].cpu()
+        left |= ((ratio - 1).abs() < 1e-4).any(-1).numpy()
+        st, y = snb(st, blk.to(dev))
+        cst, cy = one_thread(lambda: csnb(cst, blk[:8]))
+        for r in np.flatnonzero(~left):
+            worst.append(snr_db(cy[r].double(), y[r].cpu().double()))
+        assert bool(torch.isfinite(y).all())
+    yl = y[imp].abs().max(-1).values.cpu()
+    print(f"  SpectralNoiseBlanker C={C}, fft 256: rows 0-7 against the CPU "
+          f">= {min(worst):.1f} dB ({int(left.sum())} rows with a frame at "
+          f"the threshold left out), impulse rows' last-block peak "
+          f"{float(yl.max()):.2f}", flush=True)
+    assert min(worst) >= SNB_DB and left.sum() <= 1, (min(worst), left)
+    assert float(yl.max()) < 3.0
+    xb = torch.as_tensor(a[:, :AUDIO_BLOCK], device=dev)
+    times["snb"] = cuda_ms(lambda: snb(st, xb), 10)
+    out["snb"] = {"cpu_min_db": min(worst), "rows_left_out": int(left.sum())}
+    # PartitionedOLS: 10001 taps at a 512-sample block (20 partitions, FDL
+    # [1024, 20, 1024] complex64 = 168 MB) against OverlapSaveFIR on the
+    # card and the CPU on rows 0-7
+    taps = design.bandpass_analytic(POLS_TAPS, 300.0, 2800.0, 48000.0)
+    po = PartitionedOLS.create(taps, POLS_BLOCK, device=dev)
+    ols = OverlapSaveFIR.create(taps, POLS_BLOCK, device=dev)
+    cpo = PartitionedOLS.create(taps, POLS_BLOCK, device="cpu")
+    nb = POLS_BLOCKS * POLS_BLOCK
+    x = (rng.standard_normal((C, nb)) + 1j * rng.standard_normal((C, nb))
+         ).astype(np.complex64)
+    ps, os_, cs = po.init_state(C), ols.init_state(C), cpo.init_state(8)
+    e_ols = e_cpu = 0.0
+    for i in range(POLS_BLOCKS):
+        xb = torch.as_tensor(x[:, i * POLS_BLOCK:(i + 1) * POLS_BLOCK])
+        ps, yp = po(ps, xb.to(dev))
+        os_, yo = ols(os_, xb.to(dev))
+        cs, yc = one_thread(lambda: cpo(cs, xb[:8]))
+        e_ols = max(e_ols, float((yp - yo).abs().max()))
+        e_cpu = max(e_cpu, float((yp[:8].cpu() - yc).abs().max()))
+    print(f"  PartitionedOLS C={C}, {POLS_TAPS} taps, block {POLS_BLOCK} "
+          f"({po.P} partitions, FDL {ps[1].numel() * 8 / 1e6:.0f} MB): "
+          f"max|diff| to OverlapSaveFIR {e_ols:.2e}, to the CPU (rows 0-7) "
+          f"{e_cpu:.2e}", flush=True)
+    assert e_ols < POLS_TOL and e_cpu < POLS_TOL, (e_ols, e_cpu)
+    xb = torch.as_tensor(x[:, :POLS_BLOCK], device=dev)
+    times["partitioned_ols"] = cuda_ms(lambda: po(ps, xb), 10)
+    times["overlap_save_same_taps"] = cuda_ms(lambda: ols(os_, xb), 10)
+    out["partitioned_ols"] = {"max_diff_ols": e_ols, "max_diff_cpu": e_cpu}
+    # diversity: a signal and a 5x interferer on two coherent streams per
+    # row, null-steering weights from an interferer-only snapshot
+    nd = AUDIO_BLOCK
+    tt = np.arange(nd)
+    ph = rng.uniform(0, 2 * np.pi, (C, 1))
+    sig_ = np.exp(2j * np.pi * 0.01 * tt)
+    itf = 5.0 * np.exp(2j * np.pi * 0.07 * tt)
+    noise = 0.05 * (rng.standard_normal((C, 2, nd))
+                    + 1j * rng.standard_normal((C, 2, nd)))
+    xd = np.stack([sig_ + itf + 0 * ph, 0.8 * np.exp(0.4j) * sig_
+                   + itf * np.exp(1j * ph)], axis=1) + noise
+    xd = xd.astype(np.complex64)
+    w = diversity.null_steering_weights(
+        np.stack([np.broadcast_to(itf, (C, nd)), itf * np.exp(1j * ph)],
+                 axis=1).astype(np.complex64))
+    div = diversity.DiversityCombiner.create(C, device=dev).set_weights(w)
+    cdiv = diversity.DiversityCombiner.create(C, device="cpu").set_weights(w)
+    xt = torch.as_tensor(xd)
+    _, yd = div((), xt.to(dev))
+    _, cyd = cdiv((), xt)
+    rel = float((yd.cpu() - cyd).abs().max() / cyd.abs().max())
+    Y = np.abs(np.fft.fft(yd[0].cpu().numpy()))
+    f = np.fft.fftfreq(nd)
+    supp = float(Y[np.argmin(np.abs(f - 0.07))]
+                 / Y[np.argmin(np.abs(f - 0.01))])
+    print(f"  DiversityCombiner [{C}, 2, {nd}]: max rel diff to the CPU "
+          f"{rel:.2e}; row 0 interferer/signal after the null {supp:.4f}",
+          flush=True)
+    assert rel < DIV_RTOL and supp < 0.1, (rel, supp)
+    xdd = xt.to(dev)
+    times["diversity"] = cuda_ms(lambda: div((), xdd), 20)
+    out["diversity"] = {"max_rel_diff": rel, "interferer_over_signal": supp}
+    print(f"timing of the slice-5 ops [{smi}] (ms a call): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    report["slice5_ops"] = {**out, "ms": times}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -2367,6 +2880,28 @@ def main(argv=None) -> int:
     phase_loopback(report, rng_tx)
     phase_puresignal(report)
     phase_spectrum(report, smi, rng_tx)
+    # slice 5: the PLL demods and the remaining DSP ops, from a stream of
+    # their own
+    rng_s5 = np.random.default_rng(SEED + 3)
+    phase_pll_kernel(report, rng_s5)
+    paths = phase_pll_paths(report, rng_s5)
+    pll_times = phase_timing_pll(report, smi, paths)
+    pll_src = "quisk_tpu_torch/csrc/pll_demod.cu"
+    kernels += [
+        {"name": "pll_demod_sync_am", "route": "cuda", "source": pll_src,
+         "replaces": "quisk_tpu/ops/nr.py:368", "path": "sync-AM flagship",
+         "launches": paths["launches"]["sync_am"],
+         "max_abs_err": paths["kern"]["sync_am"]["max_abs_err"],
+         **pll_times["sync_am"]},
+        {"name": "pll_demod_pll_fm", "route": "cuda", "source": pll_src,
+         "replaces": "quisk_tpu/ops/demod.py:172", "path": "PLL-NFM",
+         "launches": paths["launches"]["pll_fm"],
+         "max_abs_err": paths["kern"]["pll_fm"]["max_abs_err"],
+         **pll_times["pll_fm"]},
+    ]
+    del paths
+    torch.cuda.empty_cache()
+    phase_slice5_ops(report, smi, rng_s5)
     report["kernels"] = kernels
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

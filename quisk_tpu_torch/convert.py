@@ -27,6 +27,15 @@ tune phase as uint32 <-> int64.  The spectrum analyzer's overlapped mode
 carries its trailing samples as (re, im) float32 planes in the reference
 and as one complex64 tensor in the port
 (:func:`spectrum_state_from_numpy`).
+
+The remaining DSP ops (:func:`sync_am_from_numpy`,
+:func:`pll_fm_from_numpy`, :func:`snb_from_numpy`,
+:func:`partitioned_ols_from_numpy`, :func:`diversity_from_numpy`) keep the
+reference's state layouts, so :func:`state_from_numpy` carries their
+states: the PLLs' float32 vectors (and PLLFMDemod's notch tuple, empty
+without the notch), the spectral blanker's six float32 arrays, and
+PartitionedOLS's previous block and FDL, which the reference keeps as
+host numpy complex64 and the port as complex64 tensors.
 """
 
 from __future__ import annotations
@@ -41,14 +50,19 @@ from quisk_tpu_torch.ops.agc import AGC, TxALC, WcpAGC
 from quisk_tpu_torch.ops.channelizer import (OversampledPFB, PFBChannelizer,
                                              PFBRxPipeline)
 from quisk_tpu_torch.ops.demod import (AMDemod, FMDemod, GroupedDemod,
-                                       GroupedDemodTM, MixedDemod, SSBDemod)
+                                       GroupedDemodTM, MixedDemod, PLLFMDemod,
+                                       SSBDemod)
+from quisk_tpu_torch.ops.diversity import DiversityCombiner
 from quisk_tpu_torch.ops.compress import OvershootControl, SoftCompressor
-from quisk_tpu_torch.ops.fir import ConvFIR, OverlapSaveFIR, make_fir
+from quisk_tpu_torch.ops.fir import (ConvFIR, OverlapSaveFIR, PartitionedOLS,
+                                     make_fir)
 from quisk_tpu_torch.ops.fused_front import FusedTuneDecimate
-from quisk_tpu_torch.ops.iir import DCBlock, OnePole, PhaseRotator, Preemphasis
+from quisk_tpu_torch.ops.iir import (Biquad, DCBlock, OnePole, PhaseRotator,
+                                     Preemphasis)
 from quisk_tpu_torch.ops.nco import NCO, phase_tensor
-from quisk_tpu_torch.ops.noise import AutoNotch, NoiseBlanker
-from quisk_tpu_torch.ops.nr import BlockLMS, SpectralNR
+from quisk_tpu_torch.ops.noise import (AutoNotch, NoiseBlanker,
+                                      SpectralNoiseBlanker)
+from quisk_tpu_torch.ops.nr import BlockLMS, SpectralNR, SyncAMDemod
 from quisk_tpu_torch.ops.resample import FracDecim, Interpolator
 from quisk_tpu_torch.ops.spectrum import SpectrumAnalyzer
 from quisk_tpu_torch.ops.squelch import FMSquelch, SSBSquelch
@@ -453,3 +467,57 @@ def spectrum_state_to_numpy(state: tuple) -> tuple:
         h = state[2].detach().cpu().numpy()
         out += (h.real.astype(np.float32), h.imag.astype(np.float32))
     return out
+
+
+# ------------------------------------------------------- the remaining DSP
+def sync_am_from_numpy(p: dict, device=None) -> SyncAMDemod:
+    """A SyncAMDemod from the JAX op's {"alpha", "beta", "dc_pole",
+    "max_freq"}."""
+    device = resolve_device(device)
+    return SyncAMDemod(**{k: _f32(p[k], device)
+                          for k in ("alpha", "beta", "dc_pole", "max_freq")})
+
+
+def pll_fm_from_numpy(p: dict, device=None) -> PLLFMDemod:
+    """A PLLFMDemod from {"alpha", "beta", "gain", "max_freq", "deemph_a",
+    "deemph_b", "notch"}: the de-emphasis one-pole's a, b and the CTCSS
+    notch as {"b0", "b1", "b2", "a1", "a2"}, or None without it."""
+    device = resolve_device(device)
+    n = p.get("notch")
+    notch = (Biquad(*(_f32(n[k], device) for k in ("b0", "b1", "b2", "a1",
+                                                   "a2")))
+             if n is not None else None)
+    return PLLFMDemod(deemph=OnePole(a=_f32(p["deemph_a"], device),
+                                     b=_f32(p["deemph_b"], device)),
+                      notch=notch,
+                      **{k: _f32(p[k], device)
+                         for k in ("alpha", "beta", "gain", "max_freq")})
+
+
+def snb_from_numpy(p: dict, device=None) -> SpectralNoiseBlanker:
+    """A SpectralNoiseBlanker from {"window" [fft], "block", "k_detect",
+    "bg_rate"}."""
+    device = resolve_device(device)
+    w = np.asarray(p["window"], np.float32)
+    return SpectralNoiseBlanker(
+        window=torch.as_tensor(w.copy(), device=device), fft=w.shape[-1],
+        block=int(p["block"]), k_detect=float(p["k_detect"]),
+        bg_rate=float(p["bg_rate"]))
+
+
+def partitioned_ols_from_numpy(p: dict, device=None) -> PartitionedOLS:
+    """A PartitionedOLS from {"H" [P, nfft] or [C, P, nfft] complex64,
+    "ntaps", "block", "decim"}."""
+    device = resolve_device(device)
+    H = np.asarray(p["H"]).astype(np.complex64)
+    return PartitionedOLS(H=torch.as_tensor(H, device=device),
+                          ntaps=int(p["ntaps"]), block=int(p["block"]),
+                          nfft=H.shape[-1], P=H.shape[-2],
+                          decim=int(p.get("decim", 1)))
+
+
+def diversity_from_numpy(p: dict, device=None) -> DiversityCombiner:
+    """A DiversityCombiner from {"w_re", "w_im"} [C, 2] float32."""
+    device = resolve_device(device)
+    return DiversityCombiner(w_re=_f32_vec(p["w_re"], device),
+                             w_im=_f32_vec(p["w_im"], device))

@@ -8,6 +8,9 @@ Parity targets in the reference (quisk.c:1848 ``quisk_process_demodulate``):
 - AM (quisk.c:2002-2025): envelope |x| then a one-pole DC blocker.
 - FM (quisk.c:2026-2086): phase-difference discriminator
   arg(x[n] * conj(x[n-1])) then one-pole de-emphasis at 300 Hz.
+- PLL FM (wdsp/fmd.c xfmd): a carrier-tracking second-order loop whose
+  frequency estimate is the audio, run by the PLL kernel (ops/pll.py),
+  then de-emphasis and an optional CTCSS notch.
 
 The mixed-mode batch computes every family and selects per channel with
 ``torch.where``, so the mode vector is data.  The grouped demods
@@ -25,7 +28,8 @@ import torch
 
 from quisk_tpu_torch._device import resolve_device
 from quisk_tpu_torch.modes import Mode
-from quisk_tpu_torch.ops.iir import DCBlock, OnePole
+from quisk_tpu_torch.ops.iir import Biquad, DCBlock, OnePole
+from quisk_tpu_torch.ops.pll import pll_fm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +67,9 @@ class AMDemod:
     def __call__(self, state, x: torch.Tensor):
         state, audio = self.dc(state, torch.abs(x))
         return state, self.gain * audio
+
+    def envelope(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.abs(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +112,65 @@ class FMDemod:
         prev, disc = self.discriminate(prev, x)
         y_prev, audio = self.deemph(y_prev, disc * self.gain)
         return (prev, y_prev), audio
+
+
+@dataclasses.dataclass(frozen=True)
+class PLLFMDemod:
+    """FM discriminator by carrier-tracking PLL (parity wdsp/fmd.c xfmd).
+
+    A second-order loop tracks the instantaneous phase; the audio is the
+    loop's frequency estimate (smoother under noise than the
+    phase-difference discriminator, which is why WDSP uses it for NFM).
+    An optional CTCSS notch removes the sub-audible tone (fmd.c snotch).
+
+    State: (phase [C], freq [C], deemph y_prev [C], notch state or ()).
+    The loop runs in the PLL kernel's FM mode (ops/pll.py)."""
+
+    deemph: OnePole
+    notch: Biquad | None
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    gain: torch.Tensor         # audio units per rad/sample
+    max_freq: torch.Tensor
+
+    @classmethod
+    def create(cls, sample_rate: float, deviation_hz: float = 5000.0,
+               loop_bw_hz: float = 5000.0, deemph_hz: float = 300.0,
+               ctcss_hz: float = 0.0, max_offset_hz: float = 10000.0,
+               device=None):
+        device = resolve_device(device)
+        wn = 2.0 * np.pi * loop_bw_hz / sample_rate
+        zeta = 0.707
+        g = sample_rate / (2.0 * np.pi * deviation_hz)
+        notch = (Biquad.notch(ctcss_hz, sample_rate, device, q=5.0)
+                 if ctcss_hz > 0.0 else None)
+
+        def f32(v):
+            return torch.tensor(np.float32(v), device=device)
+
+        return cls(deemph=OnePole.lowpass(deemph_hz, sample_rate, device),
+                   notch=notch, alpha=f32(2.0 * zeta * wn), beta=f32(wn * wn),
+                   gain=f32(g),
+                   max_freq=f32(2.0 * np.pi * max_offset_hz / sample_rate))
+
+    def init_state(self, channels: int):
+        z = torch.zeros((channels,), dtype=torch.float32,
+                        device=self.alpha.device)
+        notch_st = (self.notch.init_state(channels)
+                    if self.notch is not None else ())
+        return (z, z, self.deemph.init_state(channels), notch_st)
+
+    def coef(self) -> torch.Tensor:
+        """The PLL kernel's (alpha, beta, max_freq, gain)."""
+        return torch.stack([self.alpha, self.beta, self.max_freq, self.gain])
+
+    def __call__(self, state, x: torch.Tensor):
+        phase0, freq0, de0, notch_st = state
+        (ph, fr), audio = pll_fm(x, (phase0, freq0), self.coef())
+        de0, audio = self.deemph(de0, audio)
+        if self.notch is not None:
+            notch_st, audio = self.notch(notch_st, audio)
+        return (ph, fr, de0, notch_st), audio
 
 
 # Custom demodulator plugin slot (extdemod.c parity): a registry of ops.

@@ -10,6 +10,9 @@
   phase and adds the center tap.
 - :class:`ConvFIR`: a valid strided convolution as an unfold plus fp32
   matmul (no cuDNN, so no TF32 on the path).
+- :class:`PartitionedOLS`: uniformly-partitioned overlap-save (WDSP
+  FIRCORE, wdsp/firmin.c:128-435) — one 2*block FFT a block and a
+  frequency-domain delay line, one block of latency for any tap count.
 
 All carry the last ``ntaps-1`` input samples, so streaming a signal block
 by block equals filtering it whole.
@@ -104,6 +107,79 @@ class OverlapSaveFIR:
         if self.decim > 1:
             y = y[..., ::self.decim]
         return xe[..., xe.shape[-1] - (self.ntaps - 1):], y
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedOLS:
+    """Uniformly-partitioned overlap-save FIR (WDSP FIRCORE parity:
+    wdsp/firmin.c:128-286 and 290-435).
+
+    The impulse response is split into P block-sized partitions.  Each
+    step FFTs one 2*block segment ([previous block | current block]),
+    pushes its spectrum into a frequency-domain delay line (FDL) and sums
+    FDL[p] * H[p] over the partitions, so a 10001-tap filter at a
+    512-sample block costs a 1024-point FFT a block where
+    :class:`OverlapSaveFIR` takes one 16384-point FFT, and the output
+    latency is one block for any filter length.  The partition spectra are
+    data ([P, nfft], or [C, P, nfft] per channel): retuning is a tensor
+    swap.  Streaming output equals OverlapSaveFIR's with the same taps, up
+    to float association.
+
+    State: (previous input block [C, block], FDL [C, P, nfft] newest
+    first), complex64 tensors on the op's device."""
+
+    H: torch.Tensor                  # [P, nfft] or [C, P, nfft] complex64
+    ntaps: int
+    block: int
+    nfft: int
+    P: int
+    decim: int = 1
+
+    @classmethod
+    def create(cls, taps, block: int, decim: int = 1, device=None):
+        device = resolve_device(device)
+        taps = np.atleast_2d(np.asarray(taps))           # [F, T]
+        F, ntaps = taps.shape
+        if block % decim:
+            raise ValueError(f"block {block} not divisible by decim {decim}")
+        P = -(-ntaps // block)
+        nfft = 2 * block
+        padded = np.zeros((F, P * block), np.complex128)
+        padded[:, :ntaps] = taps
+        H = np.fft.fft(padded.reshape(F, P, block), n=nfft,
+                       axis=-1).astype(np.complex64)
+        if F == 1:
+            H = H[0]                                     # [P, nfft]
+        return cls(H=torch.as_tensor(H, device=device), ntaps=ntaps,
+                   block=block, nfft=nfft, P=P, decim=decim)
+
+    def retuned(self, taps) -> "PartitionedOLS":
+        """Same engine, new taps — a tensor swap, shapes unchanged."""
+        taps = np.atleast_2d(np.asarray(taps))
+        if taps.shape[-1] != self.ntaps:
+            raise ValueError("retune must keep tap count (shapes are static)")
+        new = PartitionedOLS.create(taps, self.block, self.decim,
+                                    device=self.H.device)
+        return dataclasses.replace(self, H=new.H)
+
+    def init_state(self, channels: int):
+        dev = self.H.device
+        return (torch.zeros((channels, self.block), dtype=torch.complex64,
+                            device=dev),
+                torch.zeros((channels, self.P, self.nfft),
+                            dtype=torch.complex64, device=dev))
+
+    def __call__(self, state, x: torch.Tensor):
+        """state, x [C, block] -> (state', y [C, block/decim])."""
+        prev, fdl = state
+        seg = torch.cat([prev, x.to(torch.complex64)], dim=-1)
+        X = torch.fft.fft(seg, n=self.nfft, dim=-1)      # [C, nfft]
+        fdl = torch.cat([X[:, None, :], fdl[:, :-1, :]], dim=1)
+        Y = torch.sum(fdl * self.H, dim=-2)              # [C, nfft]
+        y = torch.fft.ifft(Y, dim=-1)[..., self.block:]
+        if self.decim > 1:
+            y = y[..., ::self.decim]
+        return (seg[..., self.block:], fdl), y
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,8 @@
-"""Noise mitigation: impulse noise blanker and FFT-domain auto-notch.
+"""Noise mitigation: impulse noise blanker, FFT-domain auto-notch and the
+spectral noise blanker.
 
-Counterparts of ``quisk_tpu.ops.noise`` ``NoiseBlanker`` and ``AutoNotch``.
+Counterparts of ``quisk_tpu.ops.noise`` ``NoiseBlanker``, ``AutoNotch`` and
+``SpectralNoiseBlanker``.
 
 - Noise blanker (quisk.c:680 ``NoiseBlanker``): sliding magnitude average,
   pulse = sample > avg * limit (limits 6.0/4.0/2.5 by level), samples
@@ -9,6 +11,9 @@ Counterparts of ``quisk_tpu.ops.noise`` ``NoiseBlanker`` and ``AutoNotch``.
 - Auto-notch (quisk.c:794 ``dAutoNotch``): block FFT of the audio, find up
   to two persistent spectral peaks, design an FFT-domain notch FIR (zero
   the bins, IFFT, window, re-FFT) and apply it overlap-save style.
+- Spectral blanker (wdsp/snb.c): flag STFT frames whose broadband power
+  jumps over the tracked background and replace their spectra with the
+  last clean frame's.
 
 Both are vectorised over ``[C, B]``.  The blanker's two sliding windows
 (magnitude average, pulse widening) are sliding dot products, run as
@@ -30,6 +35,8 @@ import torch
 
 from quisk_tpu_torch._device import resolve_device
 from quisk_tpu_torch.ops.fir import banded_taps
+from quisk_tpu_torch.ops.nr import _frames, _overlap_add
+from quisk_tpu_torch.ops.scanutil import time_scan
 
 
 def sliding_dot(sig: torch.Tensor, kernel: torch.Tensor, n_out: int
@@ -251,3 +258,109 @@ class AutoNotch:
         y = torch.fft.irfft(X * self._design(spec_ema), n=self.nfft, dim=-1)
         y = y[:, self.ntaps - 1: self.ntaps - 1 + self.block]
         return (spec_ema, xe[:, xe.shape[-1] - (self.ntaps - 1):]), y
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralNoiseBlanker:
+    """Spectral noise blanker: excise impulse energy in the STFT domain
+    (parity wdsp/snb.c — detect and interpolate corrupted bins).
+
+    Impulses are broadband: a frame whose broadband power jumps far above
+    the tracked background is flagged, the flag is dilated one frame each
+    way (the window-attenuated halves of a straddling hit are too weak to
+    trip the detector but strong enough to click), and flagged frames'
+    spectra are replaced by the last clean frame's, so carriers and voice
+    running through the hit survive where a time blanker would notch them.
+    sqrt-Hann STFT at 50% overlap, ``torch.fft``.  The background tracker is
+    a per-frame loop (ops/scanutil.py); the substitution is a gather by the
+    index of the last clean frame.
+
+    State: (in_tail [C, H], out_tail [C, H], bg_power [C], prev frame
+    flagged [C], last clean spectrum re, im [C, F]), H = fft/2, F = H+1."""
+
+    window: torch.Tensor
+    fft: int
+    block: int
+    k_detect: float
+    bg_rate: float
+
+    @classmethod
+    def create(cls, block: int, fft: int = 256, k_detect: float = 8.0,
+               bg_rate: float = 0.05, device=None):
+        device = resolve_device(device)
+        if block % (fft // 2):
+            raise ValueError("block must be a multiple of fft/2")
+        w = np.sqrt(np.hanning(fft + 1)[:fft]).astype(np.float32)
+        return cls(window=torch.as_tensor(w, device=device), fft=fft,
+                   block=block, k_detect=float(k_detect),
+                   bg_rate=float(bg_rate))
+
+    def init_state(self, channels: int):
+        H, F = self.fft // 2, self.fft // 2 + 1
+        dev = self.window.device
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        # the background starts high and falls onto the clean level:
+        # starting low would flag every frame and never update
+        return (z(channels, H), z(channels, H),
+                torch.full((channels,), 1e6, dtype=torch.float32,
+                           device=dev),
+                z(channels), z(channels, F), z(channels, F))
+
+    def _track(self, bg: torch.Tensor, pw: torch.Tensor):
+        """Frame powers pw [C, nfrm] -> (bg', flags [C, nfrm], the
+        background each frame was held against [C, nfrm])."""
+        def frame_step(bg, p):
+            bad = (p > self.k_detect * bg).to(torch.float32)
+            # the background tracks only clean frames: it rises slowly
+            # (impulse tails must not lift it) and falls fast (so the high
+            # initial value converges within ~20 frames)
+            rate = torch.where(p > bg, self.bg_rate, 0.5)
+            return torch.where(bad > 0, bg, bg + rate * (p - bg)), (bad, bg)
+
+        bg, (badf, seen) = time_scan(frame_step, bg, pw, dim=1)
+        return bg, badf, seen
+
+    def _spectra(self, in_tail, a: torch.Tensor):
+        """(ext, frame spectra as (re, im) [C, nfrm, F, 2], frame powers
+        [C, nfrm])."""
+        ext = torch.cat([in_tail, a], dim=-1)
+        X = torch.fft.rfft(_frames(ext, self.fft // 2) * self.window, dim=-1)
+        Xri = torch.view_as_real(X)
+        pw = torch.mean(Xri[..., 0] * Xri[..., 0] + Xri[..., 1] * Xri[..., 1],
+                        dim=-1)
+        return ext, Xri, pw
+
+    def frame_ratio(self, state, a: torch.Tensor) -> torch.Tensor:
+        """The detector's p / (k_detect * bg) for each frame of the block
+        [C, nfrm]: a frame is flagged where it exceeds 1."""
+        _, _, pw = self._spectra(state[0], a)
+        _, _, seen = self._track(state[2], pw)
+        return pw / (self.k_detect * seen)
+
+    def __call__(self, state, a: torch.Tensor):
+        in_tail, out_tail, bg, prev_bad, clean_re, clean_im = state
+        H = self.fft // 2
+        ext, Xri, pw = self._spectra(in_tail, a)
+        bg, badf, _ = self._track(bg, pw)
+        # dilate one frame each way (frame 0's backward edge is the
+        # previous block's last flag)
+        left = torch.cat([prev_bad[:, None], badf[:, :-1]], dim=-1)
+        right = torch.cat([badf[:, 1:], badf[:, -1:]], dim=-1)
+        dil = torch.maximum(badf, torch.maximum(left, right))
+        # a flagged frame takes the spectrum of the last clean frame before
+        # it: index 0 is the carried clean spectrum, frame t is t+1
+        nfrm = dil.shape[-1]
+        pos = torch.arange(1, nfrm + 1, device=a.device).expand_as(dil)
+        last = torch.cummax(torch.where(dil > 0, 0, pos), dim=-1).values
+        spec = torch.cat([torch.stack([clean_re, clean_im], dim=-1)[:, None],
+                          Xri], dim=1)                      # [C, 1+nfrm, F, 2]
+        idx = last[:, :, None, None].expand(-1, -1, *spec.shape[2:])
+        Y = torch.gather(spec, 1, idx)
+        clean = Y[:, -1]
+        y = torch.fft.irfft(torch.view_as_complex(Y.contiguous()), n=self.fft,
+                            dim=-1) * self.window
+        out, new_out_tail = _overlap_add(y, out_tail)
+        return (ext[:, ext.shape[-1] - H:], new_out_tail, bg, badf[:, -1],
+                clean[..., 0], clean[..., 1]), out

@@ -1,7 +1,8 @@
-"""Noise reduction: spectral MMSE noise reduction (NR2) and the block-LMS
-adaptive predictor (ANR / ANF).
+"""Noise reduction: spectral MMSE noise reduction (NR2), the block-LMS
+adaptive predictor (ANR / ANF), and the synchronous AM demodulator.
 
-Counterparts of ``quisk_tpu.ops.nr`` ``SpectralNR`` and ``BlockLMS``.
+Counterparts of ``quisk_tpu.ops.nr`` ``SpectralNR``, ``BlockLMS`` and
+``SyncAMDemod``.
 
 - emnr.c: Ephraim-Malah spectral noise reduction — an STFT (sqrt-Hann,
   50% overlap-add) with a decision-directed a-priori SNR estimator and the
@@ -14,7 +15,8 @@ Counterparts of ``quisk_tpu.ops.nr`` ``SpectralNR`` and ``BlockLMS``.
 The per-frame noise tracker (8 frames per 2048-sample block) and the
 per-sub-block weight update (4 per block) are sequential in time and run
 as Python loops with the state vectorised over channels
-(ops/scanutil.py).  Transforms are ``torch.fft``.
+(ops/scanutil.py).  Transforms are ``torch.fft``.  The sync-AM PLL is
+per sample: it runs in the PLL kernel (ops/pll.py).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from quisk_tpu_torch._device import resolve_device
+from quisk_tpu_torch.ops.pll import pll_sync_am
 from quisk_tpu_torch.ops.scanutil import time_scan
 
 
@@ -238,3 +241,44 @@ class BlockLMS:
             step, (w0, tail), a.reshape(C, self.block // self.sub, self.sub),
             dim=1)
         return (w, tail), outs.reshape(C, self.block)
+
+
+@dataclasses.dataclass(frozen=True)
+class SyncAMDemod:
+    """Synchronous AM: a second-order PLL locks to the carrier, audio is the
+    in-phase projection less its tracked DC (parity: wdsp/amd.c PLL mode).
+
+    State: (phase [C], freq [C] rad/sample, dc [C]).  The loop runs in
+    the PLL kernel's sync-AM mode (ops/pll.py)."""
+
+    alpha: torch.Tensor       # phase gain
+    beta: torch.Tensor        # freq gain
+    dc_pole: torch.Tensor
+    max_freq: torch.Tensor    # rad/sample clamp
+
+    @classmethod
+    def create(cls, sample_rate: float, bw_hz: float = 100.0,
+               max_offset_hz: float = 2000.0, device=None):
+        device = resolve_device(device)
+        # standard 2nd-order loop, damping 0.707
+        wn = 2.0 * np.pi * bw_hz / sample_rate
+
+        def f32(v):
+            return torch.tensor(np.float32(v), device=device)
+
+        return cls(alpha=f32(2.0 * 0.707 * wn), beta=f32(wn * wn),
+                   dc_pole=f32(0.9995),
+                   max_freq=f32(2 * np.pi * max_offset_hz / sample_rate))
+
+    def init_state(self, channels: int):
+        z = torch.zeros((channels,), dtype=torch.float32,
+                        device=self.alpha.device)
+        return (z, z, z)
+
+    def coef(self) -> torch.Tensor:
+        """The PLL kernel's (alpha, beta, max_freq, dc_pole)."""
+        return torch.stack([self.alpha, self.beta, self.max_freq,
+                            self.dc_pole])
+
+    def __call__(self, state, x: torch.Tensor):
+        return pll_sync_am(x, tuple(state), self.coef())

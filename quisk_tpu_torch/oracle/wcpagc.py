@@ -1,13 +1,14 @@
-"""Float64 oracle for the WDSP AGC.
+"""Float64 oracles for the WDSP AGC and the TX ALC.
 
 A conformance model written from the published algorithm ``xwcpagc``
 (wdsp/wcpAGC.c:161-342: lookahead ring, sliding attack-window max,
 fast/hang back-averages, 5-state attack/fast-decay/hang/decay/hang-decay
 machine, log-slope gain law), in numpy only.  ``ops.agc.WcpAGC`` takes its
 constants from :class:`WcpParams` and must match the oracle's trajectory.
-The port keeps its own copy of ``quisk_tpu.oracle.wcpagc`` (parameters,
-``derived()`` and the AGC oracle) because it imports nothing of the JAX
-package.
+:func:`alc_oracle` models quisk's ``process_alc`` (microphone.c:270-358)
+for ``ops.agc.TxALC``.  The port keeps its own copy of
+``quisk_tpu.oracle.wcpagc`` (parameters, ``derived()`` and both oracles)
+because it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -167,3 +168,72 @@ def wcpagc_oracle(x: np.ndarray, p: WcpParams | None = None
         volts_trace[i] = volts
         state_trace[i] = state
     return out, volts_trace, state_trace
+
+
+def alc_oracle(x: np.ndarray, modes: np.ndarray,
+               sample_rate: float = 48000.0, buf_ms: float = 20.0,
+               clip_level: float = 1.0, gain_max: float = 3.0,
+               gain_min: float = 0.1, double_secs: float = 5.0,
+               n_modes: int = 14, min_magn: float = 100.0 / 32758.0
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """process_alc (microphone.c:270-358) on real/complex audio x [N] with
+    a per-sample mode id [N] -> (out [N], gain_now trace [N]).
+
+    Levels are normalized to 1.0 full scale (the reference works at
+    CLIP16=32767 with a 10-count margin and a 100-count silence floor).
+    """
+    A = int(sample_rate * buf_ms / 1000.0)
+    target = clip_level * (32767.0 - 10.0) / 32767.0
+    N = len(x)
+    buffer = np.zeros(A, dtype=np.asarray(x).dtype)
+    gain_now = np.ones(n_modes)
+    gain_change = 0.0
+    final_gain = 0.0
+    next_change = 1e10
+    counter = 0
+    fault = 0
+    index = 0
+    block_index = 0
+    out = np.zeros(N, dtype=np.asarray(x).dtype)
+    gtrace = np.zeros(N)
+    d_limit = 1.0 / (48000.0 * double_secs)
+    for i in range(N):
+        m = int(modes[i])
+        csamp = x[i]
+        out[i] = buffer[index] * gain_now[m]
+        buffer[index] = csamp
+        magn = abs(csamp)
+        if magn * (gain_now[m] + gain_change * A) > target:
+            gain_change = (target / magn - gain_now[m]) / A
+            final_gain = np.clip(gain_now[m] + gain_change * A,
+                                 gain_min, gain_max)
+            gain_change = (final_gain - gain_now[m]) / A
+            block_index = index
+            counter = 0
+            fault = 0
+            next_change = 1e10
+        elif index == block_index:
+            if next_change > d_limit:
+                next_change = d_limit
+            if next_change != 1e10 and fault < A - 10:
+                gain_change = next_change
+            final_gain = np.clip(gain_now[m] + gain_change * A,
+                                 gain_min, gain_max)
+            gain_change = (final_gain - gain_now[m]) / A
+            fault = 0
+            counter = 0
+            next_change = 1e10
+        else:
+            if magn < min_magn:
+                fault += 1
+            else:
+                counter += 1
+                d = (target / magn - final_gain) / counter
+                if next_change > d:
+                    next_change = d
+        gain_now[m] += gain_change
+        gtrace[i] = gain_now[m]
+        index += 1
+        if index >= A:
+            index = 0
+    return out, gtrace

@@ -112,7 +112,8 @@ def test_port_sources_cover_the_pfb_and_conditioner_modules():
             "demod.py"} <= names
     csrc = Path(__file__).resolve().parents[1] / "quisk_tpu_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "fused_tune_decimate.cu", "pfb_poly.cu", "pfb_demod.cu"}
+        "fused_tune_decimate.cu", "pfb_poly.cu", "pfb_demod.cu",
+        "pll_demod.cu"}
     for cu in csrc.glob("*.cu"):               # hand kernels: no library
         text = cu.read_text()
         assert "cublas" not in text.lower() and "cufft" not in text.lower()
@@ -125,6 +126,14 @@ def test_port_sources_cover_the_tx_and_spectrum_modules():
     assert {"tx/chain.py", "tx/eer.py", "tx/ptt.py", "tx/puresignal.py",
             "tx/__init__.py", "ops/compress.py", "ops/eq.py",
             "ops/spectrum.py"} <= rel
+
+
+def test_port_sources_cover_the_remaining_dsp_modules():
+    root = Path(__file__).resolve().parents[1] / "quisk_tpu_torch"
+    rel = {str(p.relative_to(root)) for p in root.rglob("*.py")}
+    assert {"ops/pll.py", "ops/diversity.py", "utils/profiling.py",
+            "utils/__init__.py", "oracle/dsp.py"} <= rel
+    assert (root / "csrc" / "pll_demod.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_sources(),
