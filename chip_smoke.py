@@ -19,6 +19,9 @@ channelizer beside it.  Then the 1024-channel transmit chain, the TX->RX
 loopback over the front kernel, PureSignal and the spectrum services.
 Then the two PLL demodulators on their hand-written kernel, each through
 the receive chain's EXT slot at 1024 channels, and the remaining DSP ops.
+Then the host edge: the flagship fed from host memory through DeviceFeed,
+the Radio session (a 48 kS/s user's session, 1024 channels at 960 kS/s on
+one capture, and a keyed TX->RX loopback session) and the CLI.
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit; build every kernel in
@@ -160,15 +163,59 @@ Phases, each fatal on failure:
     weights) against the CPU (SNB >= 90 dB, OLS within 1e-4, also of
     OverlapSaveFIR on the card), and their times.
 
+24. the flagship fed from host memory (bench.py:97-114): 16 blocks of
+    [1024, 40960] complex64, four distinct pinned blocks cycled, through
+    DeviceFeed(prefetch=1), DeviceFeed(prefetch=0), and the step on the
+    same blocks already on the card: bit-equal audio, one kernel #1
+    launch a block; the same 16 blocks as pageable numpy through
+    DeviceFeed(prefetch=1) bit-equal too; kernel #1 on the path's input
+    against its plain version; ms a block of each run (events and host
+    clock), the pinned H2D copy's ms and GB/s, the share of the copy
+    hidden under compute (1 - (prefetch-1 ms - resident ms) / copy ms),
+    the staging memcpy of the pageable run, the real-time factor;
+25. a Quisk user's Radio session (RadioConfig(sample_rate=48000,
+    mode="USB", tune_hz=10000, agc=True), sim hardware, the tone at 11
+    kHz, 12 blocks): the 1 kHz beat; after set_frequency(13000) with the
+    tone at 14 kHz the beat again, the chain retuned in place (its
+    decimators and carried state the same objects); the audio and IQ
+    record taps written and read back; waterfall rows and a finite
+    S-meter; audio > 90 dB against the same session on the CPU from
+    block 2;
+26. the wide Radio (RadioConfig(sample_rate=960000, channels=1024,
+    audio_block=2048), the unfused NCO and decimators, sim hardware):
+    every channel on the one [1, 40960] capture, which crosses to the card
+    as one row (the host->device copies of a run_once, from the
+    profiler's memcpy records: the largest one row of capture, all of
+    them under two rows) and is expanded there; channel 0 USB 1 kHz
+    below the tone, channels 1-7 LSB / USB at beats of 1100-1700 Hz; rows
+    0-7 > 90 dB against a CPU Radio with channels=8 from block 2; the
+    beat on channel 0; run_once ms (host clock), the real-time factor,
+    the idle share of run_once (device_idle), graph.feed and the chain
+    step by events;
+27. the live TX->RX loopback session of tests/test_tx_runtime.py:124-156
+    (loopback hardware, enable_tx, tx_monitor, PTT held, seeded
+    voice-like mic audio) for 16 keyed blocks: the first 2 blocks' TX IQ
+    >= 80 dB against the CPU Radio on the same mic input, the TxALC clip
+    decisions of both on identical inputs equal (the mic as sent, and 8
+    times louder, where the ALC clips), the demodulated audio against the
+    mic rho > 0.7 by the reference test's lag scan, the S-meter above -40
+    dB; a keyed block's ms and CUDA launches;
+28. the CLI (README "Quick start"): a 5 s, 192 kS/s IQ WAV holding a USB
+    station through rx, its first 4 blocks of audio through tx (--interp
+    4) and the capture through spectrum, each on the card and with --cpu:
+    rx and tx within 1 LSB of their 16-bit samples, the spectrum peak at
+    the same bin; the wall time of each command.
+
 Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
-20-23 from another (SEED + 3).
+20-23 from another (SEED + 3), phases 24-28 from another (SEED + 4).
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
 name and power limit and one
 JSON object of kernels (one entry per kernel and path shape: the front
-kernel's plain mode has one for the flagship and one for the NFM path, the
-PLL kernel one for each mode);
+kernel's plain mode has one for the flagship, one for the NFM path and one
+for the flagship fed through DeviceFeed, the PLL kernel one for each
+mode);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--out FILE`` also writes every number measured to FILE as JSON.
@@ -179,10 +226,14 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -190,6 +241,11 @@ import torch
 from scipy import signal as sig
 
 from quisk_tpu_torch import _kernels
+from quisk_tpu_torch.app import cli
+from quisk_tpu_torch.app.config import RadioConfig
+from quisk_tpu_torch.app.radio import Radio
+from quisk_tpu_torch.io import sources, wav
+from quisk_tpu_torch.io.feed import DeviceFeed
 from quisk_tpu_torch.modes import Mode
 from quisk_tpu_torch.ops import design
 from quisk_tpu_torch.ops import fused_front as ff
@@ -1166,8 +1222,8 @@ def step_ms(chain, blocks, iters: int, warmup: int = 5
 
 
 def device_idle(label: str, chain, blocks, untraced_ms: float,
-                n: int = 10, warmup: int = 5, front_kernel: bool = True
-                ) -> dict:
+                n: int = 10, warmup: int = 5, front_kernel: bool = True,
+                step=None) -> dict:
     """Device idle share of ``chain``'s step in a running stream: 10
     steps after warm-up traced by torch.profiler (CUDA activity); busy is
     the union of the device intervals of kernels and copies, the span runs
@@ -1176,17 +1232,23 @@ def device_idle(label: str, chain, blocks, untraced_ms: float,
     profiler's host cost), so the share is also given against the untraced
     step ``untraced_ms``: 1 - busy/untraced.  And the front kernel's share
     of busy time (a path without the front kernel: ``front_kernel``
-    False)."""
-    dev = torch.device(DEVICE)
-    xs = [torch.as_tensor(b, device=dev) for b in blocks[:2]]
-    st = chain.init_state()
-    for i in range(warmup):
-        st, _ = chain.step(st, xs[i % 2])
+    False).  ``step``, a call that runs one step, takes the place of
+    ``chain``'s step over ``blocks``."""
+    if step is None:
+        dev = torch.device(DEVICE)
+        xs = [torch.as_tensor(b, device=dev) for b in blocks[:2]]
+        run = {"st": chain.init_state(), "i": 0}
+
+        def step():
+            run["st"], _ = chain.step(run["st"], xs[run["i"] % 2])
+            run["i"] += 1
+    for _ in range(warmup):
+        step()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            st, _ = chain.step(st, xs[i % 2])
+        for _ in range(n):
+            step()
         torch.cuda.synchronize()
     ivs, front = [], 0.0
     for e in prof.events():
@@ -2806,6 +2868,479 @@ def phase_slice5_ops(report: dict, smi: str, rng) -> None:
     report["slice5_ops"] = {**out, "ms": times}
 
 
+# ------------------------------------------------ slice 7a: the host edge
+FEED_BLOCKS = 16
+FEED_DISTINCT = 4          # distinct pinned blocks, cycled
+USER_BLOCKS = 12
+USER_RETUNE_AT = 6
+RADIO_CPU_DB = 90.0        # card Radio vs CPU Radio, audio a block
+WIDE_BLOCKS = 8
+WIDE_TONE_HZ = 10000.0     # the sim hardware's tone
+RADIO_TX_BLOCKS = 16
+RADIO_TX_DB = 80.0         # card TX IQ vs CPU Radio, first 2 keyed blocks
+RADIO_RHO = 0.7            # tests/test_tx_runtime.py:157
+RADIO_SMETER_DB = -40.0
+CLI_SECONDS = 5.0
+CLI_FS = 192000.0
+CLI_TX_SAMPLES = 4 * AUDIO_BLOCK   # tx input: the first 4 blocks of rx's
+CLI_LSB = 1                # 16-bit samples, card vs --cpu
+
+
+class ArrayMic:
+    """A microphone that hands out an array block by block, then silence:
+    the mic the Radio polls (its live capture device is slice 7b)."""
+
+    def __init__(self, data):
+        self.data = np.asarray(data, np.float32)
+        self.pos = 0
+
+    def get(self, n):
+        out = np.zeros(n, np.float32)
+        seg = self.data[self.pos:self.pos + n]
+        out[:len(seg)] = seg
+        self.pos += n
+        return out
+
+
+def run_feed(chain, inputs, prefetch: int, dev) -> tuple[list, float,
+                                                          float, DeviceFeed]:
+    """The chain's step over ``inputs`` through a DeviceFeed: (outputs, ms a
+    block by CUDA events, ms a block by the host clock, the feed)."""
+    feed = DeviceFeed(chain.step, chain.init_state(), prefetch=prefetch,
+                      device=dev)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    outs = []
+    for x in inputs:
+        outs += feed.push(x)
+    outs += feed.flush()
+    stop.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / len(inputs) * 1e3
+    return outs, start.elapsed_time(stop) / len(inputs), host, feed
+
+
+def phase_feed(report: dict, smi: str, rng) -> dict:
+    """The flagship fed from host memory through DeviceFeed: prefetch 1,
+    prefetch 0 and blocks already on the card give the same bits, one
+    kernel #1 launch a block; pageable numpy input too; the copy, the
+    overlap and the staging memcpy timed."""
+    dev = torch.device(DEVICE)
+    chain = RxChain.create(flagship_config(), tune_hz=TUNE, mode=MODE,
+                           device=dev)
+    B = chain.block_in
+    pageable = noise_blocks(rng, FEED_DISTINCT, B)
+    pinned = [torch.from_numpy(x).pin_memory() for x in pageable]
+    assert all(p.is_pinned() for p in pinned)
+    resident = [p.to(dev) for p in pinned]
+    idx = [i % FEED_DISTINCT for i in range(FEED_BLOCKS)]
+    run_feed(chain, pinned[:2], 1, dev)                 # warm-up
+
+    reset_launches()
+    out1, ms1, host1, _ = run_feed(chain, [pinned[i] for i in idx], 1, dev)
+    n_feed = launches()
+    print(f"  feed path: {FEED_BLOCKS} blocks via DeviceFeed(prefetch=1), "
+          f"front launches {n_feed}", flush=True)
+    assert n_feed == {"plain": FEED_BLOCKS, "gained": 0, "nb": 0}, n_feed
+    out0, ms0, host0, _ = run_feed(chain, [pinned[i] for i in idx], 0, dev)
+
+    st, out_r = chain.init_state(), []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in idx:
+        st, a = chain.step(st, resident[i])
+        out_r.append(a)
+    stop.record()
+    torch.cuda.synchronize()
+    host_r = (time.perf_counter() - t0) / FEED_BLOCKS * 1e3
+    ms_r = start.elapsed_time(stop) / FEED_BLOCKS
+    out_p, ms_p, host_p, fp = run_feed(chain, [pageable[i] for i in idx], 1,
+                                       dev)
+    for name, outs in (("prefetch 0", out0), ("resident", out_r),
+                       ("pageable numpy", out_p)):
+        assert len(outs) == FEED_BLOCKS
+        same = all(torch.equal(a, b) for a, b in zip(out1, outs))
+        print(f"  feed prefetch 1 vs {name}: bit-equal {same}", flush=True)
+        assert same, name
+    for a in out1:
+        assert a.shape == (C, AUDIO_BLOCK) and bool(torch.isfinite(a).all())
+    staged_ms = fp.staging_s / FEED_BLOCKS * 1e3
+    assert fp.staged_bytes == FEED_BLOCKS * C * B * 8, fp.staged_bytes
+
+    dst = torch.empty_like(resident[0])
+    copy_ms = cuda_ms(lambda: dst.copy_(pinned[0], non_blocking=True), 10)
+    nbytes = C * B * 8
+    budget_ms = B / FS * 1e3
+    hidden = 1.0 - (ms1 - ms_r) / copy_ms
+    kern = check_plain_mode(chain.front, [pageable[0], pageable[1]])
+    out = {"blocks": FEED_BLOCKS, "launches": n_feed,
+           "ms_per_block": {"prefetch1": ms1, "prefetch0": ms0,
+                            "resident": ms_r, "pageable": ms_p},
+           "host_ms_per_block": {"prefetch1": host1, "prefetch0": host0,
+                                 "resident": host_r, "pageable": host_p},
+           "copy_ms": copy_ms, "copy_gb_s": nbytes / copy_ms / 1e6,
+           "copy_hidden_share": hidden, "staging_ms": staged_ms,
+           "realtime_factor": budget_ms / ms1,
+           "max_abs_err": kern["max_abs_err"]}
+    print(f"feed timing [{smi}] (ms a block, events / host): prefetch 1 "
+          f"{ms1:.4f} / {host1:.4f}, prefetch 0 {ms0:.4f} / {host0:.4f}, "
+          f"resident {ms_r:.4f} / {host_r:.4f}, pageable numpy "
+          f"{ms_p:.4f} / {host_p:.4f}", flush=True)
+    print(f"  H2D copy of one block ({nbytes / 1e6:.1f} MB, pinned): "
+          f"{copy_ms:.4f} ms = {out['copy_gb_s']:.2f} GB/s; copy hidden "
+          f"under compute 1 - (prefetch1 - resident) / copy = {hidden:.4f}; "
+          f"staging memcpy (pageable) {staged_ms:.4f} ms a block; real-time "
+          f"factor {out['realtime_factor']:.2f}x of {budget_ms:.2f} ms",
+          flush=True)
+    report["feed"] = out
+    return out
+
+
+def user_session(device, tmp: str | None = None) -> dict:
+    """A Quisk user's session (RadioConfig defaults at 48 kS/s, sim
+    hardware): USER_BLOCKS blocks, the tone 1 kHz above the USB dial, a
+    retune at block USER_RETUNE_AT, the audio and IQ record taps."""
+    r = Radio(RadioConfig(sample_rate=48000.0, mode="USB", tune_hz=10000.0,
+                          agc=True), hardware="sim", device=device)
+    r.hw.tone_hz = 11000.0
+    r.open()
+    audio, retuned = [], {}
+    for k in range(USER_BLOCKS):
+        if tmp is not None and k == 2:
+            r.start_record(os.path.join(tmp, "spk.wav"), kind="audio")
+        if tmp is not None and k == 4:
+            retuned["spk"] = r.stop_record()
+            r.start_record(os.path.join(tmp, "raw.wav"), kind="iq")
+        if k == USER_RETUNE_AT:
+            if tmp is not None:
+                retuned["iq"] = r.stop_record()
+            stages, state = r.chain.stages, r._state
+            r.hw.tone_hz = 14000.0
+            r.set_frequency(13000.0)
+            retuned["same_objects"] = (r.chain.stages is stages
+                                       and r._state is state)
+        audio.append(r.run_once()[0])
+    out = {"audio": audio, "smeter": r.smeter_db(),
+           "waterfall_rows": int(r.waterfall.pixels().shape[0]),
+           "fs": r.chain.fs_audio, **retuned}
+    r.close()
+    return out
+
+
+def beat_hz(a: np.ndarray, fs: float) -> float:
+    a = np.asarray(a, np.float64)
+    spec = np.abs(np.fft.rfft(a * np.hanning(a.size)))
+    return float(np.fft.rfftfreq(a.size, 1.0 / fs)[np.argmax(spec)])
+
+
+def phase_radio_user(report: dict) -> None:
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        s = user_session(None, tmp)
+        card_s = time.perf_counter() - t0
+        spk, fs_a = wav.read_audio_wav(s["spk"])
+        iq, fs_iq = wav.read_iq_wav(s["iq"])
+    cpu = one_thread(lambda: user_session("cpu"))
+    fs = s["fs"]
+    f_before = beat_hz(np.concatenate(s["audio"][USER_RETUNE_AT - 2:
+                                                 USER_RETUNE_AT]), fs)
+    f_after = beat_hz(np.concatenate(s["audio"][-2:]), fs)
+    snr = [snr_db(torch.as_tensor(c, dtype=torch.float64),
+                  torch.as_tensor(a, dtype=torch.float64))
+           for a, c in zip(s["audio"][2:], cpu["audio"][2:])]
+    print(f"  Radio session (48 kS/s, sim): beat {f_before:.1f} Hz, after "
+          f"set_frequency(13000) {f_after:.1f} Hz, retuned in place "
+          f"{s['same_objects']}, S-meter {s['smeter']:.2f} dB, waterfall rows "
+          f"{s['waterfall_rows']}, card vs CPU Radio blocks 2-"
+          f"{USER_BLOCKS - 1} min {min(snr):.1f} dB; {USER_BLOCKS} blocks "
+          f"in {card_s:.2f} s", flush=True)
+    assert abs(f_before - BEAT_HZ) <= 30.0 and abs(f_after - BEAT_HZ) <= 30.0
+    assert s["same_objects"]
+    assert spk.shape == (2 * AUDIO_BLOCK,) and fs_a == 48000.0
+    assert np.max(np.abs(spk - np.clip(np.concatenate(s["audio"][2:4]),
+                                       -1, 1))) <= 2.0 / 32767
+    assert iq.shape == (2 * AUDIO_BLOCK,) and fs_iq == 48000.0
+    assert abs(float(np.mean(np.abs(iq))) - 0.5) < 0.01
+    assert s["waterfall_rows"] >= 1 and np.isfinite(s["smeter"])
+    assert min(snr) > RADIO_CPU_DB, snr
+    report["radio_user"] = {"beat_hz": [f_before, f_after],
+                            "cpu_match_min_db": min(snr),
+                            "smeter_db": s["smeter"]}
+
+
+def wide_radio(device, channels: int):
+    """The Radio at 960 kS/s, every channel on the one sim capture: channel
+    0 USB 1 kHz below the tone, sub-receivers 1-7 alternately LSB above it
+    and USB below it, each at its own beat (1000 + 100 c Hz); the others
+    as channel 0."""
+    r = Radio(RadioConfig(sample_rate=FS, channels=channels,
+                          audio_block=AUDIO_BLOCK, mode="USB",
+                          tune_hz=WIDE_TONE_HZ - BEAT_HZ),
+              hardware="sim", device=device)
+    for c in range(1, 8):
+        lsb = c % 2 == 1
+        beat = BEAT_HZ + 100.0 * c
+        r.set_sub_rx(c, freq_hz=WIDE_TONE_HZ + (beat if lsb else -beat),
+                     mode="LSB" if lsb else "USB")
+    r.open()
+    return r
+
+
+def h2d_bytes(fn, n: int = 3) -> list[int]:
+    """Bytes of every host->device copy that n calls of fn() make, from the
+    memcpy records of a torch.profiler trace.  One call ahead of them is
+    the profiler's warm-up step, whose records are dropped: a trace that
+    starts cold has been seen to miss the first copy."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=n),
+                on_trace_ready=lambda p: p.export_chrome_trace(path)
+        ) as prof:
+            for _ in range(n + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    sizes = [int(e["args"]["bytes"]) for e in events
+             if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    assert sizes, "the trace holds no host->device copy"
+    return sizes
+
+
+def phase_radio_wide(report: dict, smi: str) -> None:
+    """The Radio at 1024 channels, 960 kS/s, every channel on the one sim
+    capture: the capture crosses as [1, n], rows 0-7 against a CPU Radio
+    with channels=8, the beat on channel 0, timing and idle share."""
+    r = wide_radio(None, C)
+    assert r.chain.front is None and r.chain.stages, "unfused decimators"
+    B = r.chain.block_in
+    audio = [r.run_once()]
+    n_prof = 3
+    sizes = h2d_bytes(lambda: audio.append(r.run_once()), n_prof)
+    per_block = sum(sizes) / n_prof
+    print(f"  wide Radio: host->device copies of {n_prof} run_once: "
+          f"{len(sizes)}, {per_block:.0f} bytes a block, largest "
+          f"{max(sizes)} (one [1, {B}] capture = {B * 8} bytes; broadcast on "
+          f"the host it would be {C * B * 8})", flush=True)
+    assert sizes.count(B * 8) == n_prof and max(sizes) == B * 8, sizes
+    assert per_block < 2 * B * 8, sizes
+    audio += [r.run_once() for _ in range(WIDE_BLOCKS - len(audio))]
+    cpu = one_thread(lambda: wide_radio("cpu", 8))
+    cpu_audio = one_thread(lambda: [cpu.run_once()
+                                    for _ in range(WIDE_BLOCKS)])
+    worst = []
+    for k in range(2, WIDE_BLOCKS):
+        for row in range(8):
+            ref = torch.as_tensor(cpu_audio[k][row], dtype=torch.float64)
+            got = torch.as_tensor(audio[k][row], dtype=torch.float64)
+            s = snr_db(ref, got)
+            assert s > RADIO_CPU_DB, (k, row, s)
+            worst.append(s)
+    f0 = beat_hz(np.concatenate([a[0] for a in audio[-3:]]), 48000.0)
+    print(f"  wide Radio: card vs CPU Radio (channels=8), rows 0-7, blocks "
+          f"2-{WIDE_BLOCKS - 1}: min {min(worst):.1f} dB; channel 0 beat "
+          f"{f0:.1f} Hz", flush=True)
+    assert abs(f0 - BEAT_HZ) <= 30.0, f0
+    assert all(a.shape == (C, AUDIO_BLOCK) and np.all(np.isfinite(a))
+               for a in audio)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(6):
+        r.run_once()
+    host_ms = (time.perf_counter() - t0) / 6 * 1e3
+    budget_ms = B / FS * 1e3
+    xd = torch.as_tensor(r.hw.read_samples(B), device=DEVICE).expand(C, B)
+    feed_ms = cuda_ms(lambda: r.graph.feed(xd), 6)
+    step_ms_, _ = step_ms(r.chain, [xd, xd], iters=5, warmup=2)
+    idle = device_idle("wide Radio run_once", r.chain, [], host_ms,
+                       warmup=2, front_kernel=False, step=r.run_once)
+    print(f"wide Radio timing [{smi}]: run_once {host_ms:.4f} ms/block (host "
+          f"clock, returns numpy), real-time factor "
+          f"{budget_ms / host_ms:.2f}x of {budget_ms:.2f} ms; graph.feed "
+          f"{feed_ms:.4f} ms, chain step "
+          f"{step_ms_:.4f} ms (events)", flush=True)
+    r.close()
+    report["radio_wide"] = {"h2d_bytes_a_block": per_block,
+                            "cpu_match_min_db": min(worst), "beat_hz": f0,
+                            "run_once_ms": host_ms,
+                            "realtime_factor": budget_ms / host_ms,
+                            "graph_feed_ms": feed_ms, "step_ms": step_ms_,
+                            "idle": idle}
+
+
+def loopback_radio(device, voice):
+    """The live loopback session of tests/test_tx_runtime.py:124-156 (the
+    flow of examples/demo_transceiver.py live_session) up to PTT."""
+    r = Radio(RadioConfig(sample_rate=48000.0, audio_block=AUDIO_BLOCK,
+                          mode="USB", tune_hz=9000.0, agc=False),
+              hardware="loopback", device=device)
+    r.open()
+    r.enable_tx()
+    r.tx_monitor = True
+    r.run_once()
+    r.transmit(np.zeros(r.tx.block, np.float32), ptt=True)
+    r.mic = ArrayMic(voice)
+    r.set_ptt(True)
+    return r
+
+
+def keyed_blocks(r, n: int) -> tuple[list, list, list]:
+    """n keyed run_once blocks: (audio row 0, TX IQ, TX state entering)."""
+    audio, iqs, states = [], [], []
+    for _ in range(n):
+        states.append(r._tx_state)
+        audio.append(r.run_once()[0])
+        iqs.append(r.tx_iq_last)
+    return audio, iqs, states
+
+
+def alc_flips(tx_card, tx_cpu, states, mic_blocks, scale: float
+              ) -> tuple[int, int]:
+    """The card's and the CPU's TxALC on identical inputs (the CPU chain's
+    pre-ALC IQ and state for ``scale`` times the mic): (clips, flips)."""
+    dev = tx_card.device
+    clips = flips = 0
+    for st, m in zip(states, mic_blocks):
+        a = torch.as_tensor(scale * m[None])
+        _, iq = tx_cpu.pre_alc(st, a)
+        _, _, c_cpu = tx_cpu.alc.trace(st["alc"], iq)
+        _, _, c_card = tx_card.alc.trace(alc_rows(st["alc"], 1, dev),
+                                         iq.to(dev))
+        clips += int(c_cpu.sum())
+        flips += int((c_card.cpu() != c_cpu).sum())
+    return clips, flips
+
+
+def phase_radio_tx(report: dict, smi: str, rng) -> None:
+    n = (RADIO_TX_BLOCKS + 1) * AUDIO_BLOCK
+    voice = voice_like(rng, n, 1, band=(400.0, 2300.0))[0]
+    voice = (0.5 * voice / np.max(np.abs(voice))).astype(np.float32)
+    r = loopback_radio(None, voice)
+    t0 = time.perf_counter()
+    audio, iqs, _ = keyed_blocks(r, RADIO_TX_BLOCKS)
+    keyed_ms = (time.perf_counter() - t0) / RADIO_TX_BLOCKS * 1e3
+    smeter = r.smeter_db()
+    n_launch = count_launches(r.run_once)
+    r.set_ptt(False)
+    r.run_once()
+    r.close()
+    cpu = one_thread(lambda: loopback_radio("cpu", voice))
+    _, cpu_iqs, cpu_states = one_thread(lambda: keyed_blocks(cpu, 2))
+    snr = [snr_db(torch.as_tensor(c), torch.as_tensor(g))
+           for g, c in zip(iqs[:2], cpu_iqs)]
+    mic_blocks = [voice[k * AUDIO_BLOCK:(k + 1) * AUDIO_BLOCK]
+                  for k in range(2)]
+    clip_check = {s: one_thread(lambda s=s: alc_flips(r.tx, cpu.tx,
+                                                      cpu_states,
+                                                      mic_blocks, s))
+                  for s in (1.0, 8.0)}
+    aud = np.concatenate(audio)
+    rho, lag = voice_correlation(voice, aud)
+    print(f"  Radio TX (loopback, {RADIO_TX_BLOCKS} keyed blocks): TX IQ card "
+          f"vs CPU Radio, first 2 blocks: "
+          + ", ".join(f"{v:.1f}" for v in snr) + " dB; TxALC clips / flips on "
+          f"identical inputs: mic x1 {clip_check[1.0]}, mic x8 "
+          f"{clip_check[8.0]}; voice rho {rho:.4f} at lag {lag}; S-meter "
+          f"{smeter:.2f} dB", flush=True)
+    print(f"Radio TX timing [{smi}]: a keyed run_once {keyed_ms:.1f} ms "
+          f"(host clock), {n_launch} CUDA launches and copies a block",
+          flush=True)
+    assert min(snr) >= RADIO_TX_DB, snr
+    assert all(f == 0 for _, f in clip_check.values()), clip_check
+    assert clip_check[8.0][0] > 0, clip_check
+    assert rho > RADIO_RHO, (rho, lag)
+    assert smeter > RADIO_SMETER_DB, smeter
+    report["radio_tx"] = {"cpu_match_db": snr, "alc": {
+        str(k): v for k, v in clip_check.items()}, "rho": rho,
+        "smeter_db": smeter, "keyed_ms": keyed_ms, "launches": n_launch}
+
+
+def voice_correlation(voice: np.ndarray, audio: np.ndarray
+                      ) -> tuple[float, int]:
+    """tests/test_tx_runtime.py:136-153: the mic against the demodulated
+    audio over blocks 6-13, analytic signals, a lag scan over the chain's
+    group delay."""
+    seg = slice(6 * AUDIO_BLOCK, 14 * AUDIO_BLOCK)
+    core = sig.firwin(257, [500.0, 2200.0], fs=48000.0, pass_zero=False)
+    av = sig.hilbert(np.convolve(voice[seg], core, "same"))
+    aa = sig.hilbert(np.convolve(audio[seg], core, "same"))
+    m = len(av) - 4000
+    c = np.array([np.abs(np.vdot(av[:m], aa[lag:lag + m]))
+                  for lag in range(4000)])
+    best = int(np.argmax(c))
+    a2, v2 = aa[best:best + m], av[:m]
+    rho = float(np.abs(np.vdot(v2, a2))
+                / (np.linalg.norm(v2) * np.linalg.norm(a2)))
+    return rho, best
+
+
+def run_cli(argv: list[str]) -> tuple[str, float]:
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    secs = time.perf_counter() - t0
+    assert rc == 0, (argv, rc, buf.getvalue())
+    return buf.getvalue(), secs
+
+
+def phase_cli(report: dict, smi: str) -> None:
+    """The CLI (README "Quick start") on the card and with --cpu: rx, tx,
+    spectrum of a 5 s, 192 kS/s capture holding a USB station."""
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lambda name: os.path.join(tmp, name)   # noqa: E731
+        n = int(CLI_SECONDS * CLI_FS)
+        wav.write_iq_wav(p("iq.wav"), 0.5 * sources.station_iq(
+            Mode.USB, CLI_FS, n, carrier_hz=12000.0, seed=SEED), CLI_FS)
+        for side, extra in (("card", []), ("cpu", ["--cpu"])):
+            _, walls[f"rx_{side}"] = run_cli([
+                "rx", "--in", p("iq.wav"), "--out", p(f"rx_{side}.wav"),
+                "--mode", "USB", "--tune", "12000", *extra])
+        a, fs = wav.read_audio_wav(p("rx_card.wav"))
+        b, _ = wav.read_audio_wav(p("rx_cpu.wav"))
+        rx_lsb = float(np.max(np.abs(a - b)) * 32768.0)
+        wav.write_audio_wav(p("mic.wav"), a[:CLI_TX_SAMPLES], fs)
+        peaks = {}
+        for side, extra in (("card", []), ("cpu", ["--cpu"])):
+            _, walls[f"tx_{side}"] = run_cli([
+                "tx", "--in", p("mic.wav"), "--out", p(f"tx_{side}.wav"),
+                "--mode", "USB", "--interp", "4", *extra])
+            text, walls[f"spectrum_{side}"] = run_cli([
+                "spectrum", "--in", p("iq.wav"), *extra])
+            peaks[side] = text.splitlines()[-1]
+        x, fs_tx = wav.read_iq_wav(p("tx_card.wav"))
+        y, _ = wav.read_iq_wav(p("tx_cpu.wav"))
+    tx_lsb = float(max(np.max(np.abs(x.real - y.real)),
+                       np.max(np.abs(x.imag - y.imag))) * 32768.0)
+    print(f"  CLI: rx {a.size} samples at {fs:.0f} Hz, card vs --cpu max "
+          f"{rx_lsb:.0f} LSB; tx {x.size} IQ samples at {fs_tx:.0f} Hz, max "
+          f"{tx_lsb:.0f} LSB; spectrum card '{peaks['card']}', --cpu "
+          f"'{peaks['cpu']}'", flush=True)
+    print(f"CLI timing [{smi}] (s, wall): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()), flush=True)
+    assert a.size == n // (4 * AUDIO_BLOCK) * AUDIO_BLOCK, a.size
+    assert fs == 48000.0
+    assert rx_lsb <= CLI_LSB and tx_lsb <= CLI_LSB, (rx_lsb, tx_lsb)
+    assert x.size == 4 * CLI_TX_SAMPLES and fs_tx == 4 * fs
+    bins = {k: v.split(" at ")[1] for k, v in peaks.items()}
+    assert bins["card"] == bins["cpu"], peaks
+    report["cli"] = {"rx_lsb": rx_lsb, "tx_lsb": tx_lsb, "peak": peaks,
+                     "wall_s": walls}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -2902,6 +3437,18 @@ def main(argv=None) -> int:
     del paths
     torch.cuda.empty_cache()
     phase_slice5_ops(report, smi, rng_s5)
+    # slice 7a: the host edge, from a stream of its own
+    rng_he = np.random.default_rng(SEED + 4)
+    feed = phase_feed(report, smi, rng_he)
+    kernels.append({**plain, "path": "flagship via DeviceFeed",
+                    "launches": feed["launches"]["plain"],
+                    "max_abs_err": feed["max_abs_err"], **times})
+    torch.cuda.empty_cache()
+    phase_radio_user(report)
+    phase_radio_wide(report, smi)
+    torch.cuda.empty_cache()
+    phase_radio_tx(report, smi, rng_he)
+    phase_cli(report, smi)
     report["kernels"] = kernels
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

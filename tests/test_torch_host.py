@@ -136,6 +136,28 @@ def test_port_sources_cover_the_remaining_dsp_modules():
     assert (root / "csrc" / "pll_demod.cu").exists()
 
 
+def test_port_sources_cover_the_host_edge_modules():
+    root = Path(__file__).resolve().parents[1] / "quisk_tpu_torch"
+    rel = {str(p.relative_to(root)) for p in root.rglob("*.py")}
+    assert {"io/__init__.py", "io/wav.py", "io/sources.py", "io/feed.py",
+            "app/__init__.py", "app/flags.py", "app/status.py",
+            "app/notchdb.py", "app/config.py", "app/graph.py", "app/cw.py",
+            "app/rigctl.py", "app/radio.py", "app/cli.py", "hw/__init__.py",
+            "hw/base.py"} <= rel
+
+
+def test_cli_import_loads_no_jax():
+    code = ("import sys, quisk_tpu_torch.app.cli, quisk_tpu_torch.app.radio\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'flax', 'quisk_tpu.')) "
+            "or m == 'quisk_tpu']\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=Path(__file__).resolve().parents[1])
+    assert r.returncode == 0, r.stderr
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(
                              Path(__file__).resolve().parents[1])))
