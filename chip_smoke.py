@@ -10,7 +10,7 @@ LMS notch, spectral NR and both squelches, the blanker detected and applied
 inside the front kernel), the same through its verification route (the
 blanker detected by torch ops and applied by the kernel's gained mode),
 the NFM receiver (192 kS/s, all
-FM, FM squelch), a short run of the WDSP-exact AGC and the featured
+FM, FM squelch), the flagship on the WDSP-exact AGC and the featured
 receiver behind the raw-IQ conditioner.  And the 4096-channel PFB
 channelizer receiver (2x-oversampled polyphase filterbank, 33.5 M input
 samples a block, mode quarters USB/LSB/AM/FM, polyphase sums, stage-2 IDFT
@@ -21,7 +21,8 @@ Then the two PLL demodulators on their hand-written kernel, each through
 the receive chain's EXT slot at 1024 channels, and the remaining DSP ops.
 Then the host edge: the flagship fed from host memory through DeviceFeed,
 the Radio session (a 48 kS/s user's session, 1024 channels at 960 kS/s on
-one capture, and a keyed TX->RX loopback session) and the CLI.
+one capture, and a keyed TX->RX loopback session) and the CLI.  Last, the
+AGC / ALC recurrence kernel that the TX chain and the WDSP AGC run on.
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit; build every kernel in
@@ -78,8 +79,13 @@ Phases, each fatal on failure:
    shape (C=1024, B=8192, T=133, d=4) on the path's input over 2
    streamed blocks against its plain version and float64 reference, as
    in phase 2, and timed with its plain version, yardstick and bound;
-8. the flagship with agc_profile="wcp" for 2 blocks against the CPU chain
-   on channels 0-7, with its time per block (a per-sample loop);
+8. the flagship with agc_profile="wcp" (the WDSP AGC's state machine on
+   csrc/agc_scan.cu) for 8 blocks against the CPU chain on channels 0-7
+   (>= 40 dB, the AGC's integer states equal after the last block, one
+   front and one AGC kernel launch a block), timed like the
+   flagship (events, host clock, idle share), the AGC stage alone by
+   events with its CUDA launches; then HangAGC over the same blocks' demod
+   audio, one launch a block;
 9. timing of the featured and NFM steps with their idle shares, the
    featured stages, and the gained and NB-detect kernels with their plain
    versions and bounds;
@@ -123,7 +129,8 @@ Phases, each fatal on failure:
     through the card's SpectrumAnalyzer;
 16. timing of the TX step (events and host clock, output Msps, real-time
     factor), its stages on one block's real intermediates, the CUDA
-    launches of TxALC and of the whole step, and its device idle share;
+    launches of TxALC (at most 40) and of the whole step (at most 200),
+    and its device idle share;
 17. the TX->RX loopback: the TX chain with ALC, compression and
     pre-emphasis off into the 192 kS/s RxChain (kernel #1 at T=133, d=4)
     for 16 blocks: one front launch a block, the voice recovered at > 18 dB
@@ -199,23 +206,35 @@ Phases, each fatal on failure:
     decisions of both on identical inputs equal (the mic as sent, and 8
     times louder, where the ALC clips), the demodulated audio against the
     mic rho > 0.7 by the reference test's lag scan, the S-meter above -40
-    dB; a keyed block's ms and CUDA launches;
+    dB; a keyed block's ms and CUDA launches, the TX step's alone (at most
+    200) and its TxALC's (at most 40);
 28. the CLI (README "Quick start"): a 5 s, 192 kS/s IQ WAV holding a USB
     station through rx, its first 4 blocks of audio through tx (--interp
     4) and the capture through spectrum, each on the card and with --cpu:
     rx and tx within 1 LSB of their 16-bit samples, the spectrum peak at
-    the same bin; the wall time of each command.
+    the same bin; the wall time of each command;
+29. the AGC / ALC kernel (csrc/agc_scan.cu) in its three modes, TxALC,
+    WcpAGC and HangAGC, against its plain versions at shapes off the paths'
+    (C = 1 and 33, B = 1, 7 and 2048, from random mid-run states; the ALC
+    with a row at its clip threshold and a silent row, WcpAGC with hang on
+    and off): every state bit-equal, the ALC's clip decisions equal at
+    every sample, the outputs bit-equal (WcpAGC's gain within 2 ulp where
+    log10f and torch's log10 differ, the samples counted), one launch a
+    call; a block cut in two calls at an odd sample equal to one call bit
+    for bit; each mode on its path's own [1024, 2048] arguments, timed with
+    its plain version and bound.
 
 Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
-20-23 from another (SEED + 3), phases 24-28 from another (SEED + 4).
+20-23 from another (SEED + 3), phases 24-28 from another (SEED + 4), phase
+29 from another (SEED + 5).
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
 name and power limit and one
 JSON object of kernels (one entry per kernel and path shape: the front
 kernel's plain mode has one for the flagship, one for the NFM path and one
-for the flagship fed through DeviceFeed, the PLL kernel one for each
-mode);
+for the flagship fed through DeviceFeed, the PLL kernel and the AGC / ALC
+kernel one for each mode);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--out FILE`` also writes every number measured to FILE as JSON.
@@ -255,9 +274,9 @@ from quisk_tpu_torch.ops.fused_front import (fused_tune_decimate,
                                              fused_tune_decimate_plain,
                                              fused_tune_decimate_reference)
 from quisk_tpu_torch.ops import pfb_kernels as pk
-from quisk_tpu_torch.ops import diversity, pll
+from quisk_tpu_torch.ops import agc_scan, diversity, pll
 from quisk_tpu_torch.ops.channelizer import PFBChannelizer, PFBRxPipeline
-from quisk_tpu_torch.ops.agc import TxALC
+from quisk_tpu_torch.ops.agc import HangAGC, TxALC, WcpAGC
 from quisk_tpu_torch.ops.demod import PLLFMDemod, register_ext_demod
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR, PartitionedOLS
 from quisk_tpu_torch.ops.noise import SpectralNoiseBlanker
@@ -298,6 +317,7 @@ FM_RMS_DB = 0.5            # FM audio, card vs CPU, by RMS
 # WcpAGC decides per sample (attack / hang / decay) on float32 values, so a
 # rounding difference can move a state change by a sample: 40 dB on block 1.
 WCP_MATCH_DB = 40.0
+WCP_BLOCKS = 8
 NEAR_MAX = 4               # near-threshold blanker groups tolerated a block
 FS_NFM = 192000.0
 # PFB receiver (bench.py:404-414): 4096 channels, 2x oversampled, 8192
@@ -384,7 +404,8 @@ def reset_launches() -> None:
     for fn in (fused_tune_decimate, fused_tune_decimate_gained,
                fused_tune_decimate_nb, pk.pfb_poly_oversampled,
                pk.pfb_poly_critical, pk.pfb_demod_call, pll.pll_sync_am,
-               pll.pll_fm):
+               pll.pll_fm, agc_scan.tx_alc_scan, agc_scan.wcp_scan,
+               agc_scan.hang_scan):
         fn.launches = 0
 
 
@@ -1158,44 +1179,88 @@ def phase_nfm(report: dict, smi: str, rng):
 
 
 # ----------------------------------------------------------------- WDSP AGC
-def phase_wcp(report: dict, blocks) -> None:
-    """The flagship with agc_profile="wcp" (a per-sample loop over the
-    block: exact, and slow on a card) for 2 blocks."""
+def phase_wcp(report: dict, smi: str, blocks) -> dict:
+    """The flagship with agc_profile="wcp" (the WDSP AGC's state machine on
+    csrc/agc_scan.cu) for WCP_BLOCKS blocks against the CPU chain on rows
+    0-7 (the audio, and the AGC's integer states equal after the last
+    block), timed like the flagship; the stage alone by events and its
+    launches; then HangAGC over the same blocks' demod audio (no chain
+    selects it; its op is the entry point).  Returns the [1024, 2048]
+    arguments both recurrences took on their last block."""
     dev = torch.device(DEVICE)
     cfg = dataclasses.replace(flagship_config(), agc_profile="wcp")
     chain = RxChain.create(cfg, tune_hz=TUNE, mode=MODE, device=dev)
+    blocks = blocks[:WCP_BLOCKS]
     st = chain.init_state()
     audio, ms = [], []
-    for x in blocks[:2]:
+    reset_launches()
+    for x in blocks:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st, a = chain.step(st, torch.as_tensor(x, device=dev))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         audio.append(a)
-    x = torch.as_tensor(blocks[1], device=dev)
-    _, y = chain.front(st["front"], x)
-    _, y = chain.bp(st["bp"], y)
-    _, aud = chain.demod(st["demod"], y)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    chain.agc(st["agc"], aud)
-    torch.cuda.synchronize()
-    agc_ms = (time.perf_counter() - t0) * 1e3
+    n_wcp = agc_scan.wcp_scan.launches
+    n_front = fused_tune_decimate.launches
     assert all(bool(torch.isfinite(a).all()) for a in audio)
+    assert n_wcp == len(blocks) and n_front == len(blocks), (n_wcp, n_front)
     cpu = RxChain.create(dataclasses.replace(cfg, channels=8),
                          tune_hz=TUNE[:8], mode=MODE[:8], device="cpu")
-    cst, cpu_audio = one_thread(lambda: run_chain(cpu, blocks[:2], rows=8))
+    cst, cpu_audio = one_thread(lambda: run_chain(cpu, blocks, rows=8))
     match = compare_with_cpu(audio, cpu_audio, MODE, 1, WCP_MATCH_DB,
                              "WcpAGC")
     same = [k for k in ("state", "hang_counter", "decay_type")
             if torch.equal(st["agc"][k][:8].cpu(), cst["agc"][k])]
-    print(f"  WcpAGC chain: {ms[0]:.1f} and {ms[1]:.1f} ms/block (host "
-          f"clock), its AGC stage alone {agc_ms:.1f} ms; integer states "
-          f"equal to the CPU chain's after 2 blocks: {same}", flush=True)
     assert match["compared"] >= 6, match
-    report["wcp"] = {"ms_per_block": ms, "agc_ms": agc_ms,
-                     "cpu_match": match, "equal_int_states": same}
+    assert len(same) == 3, same
+    # the demod audio of every block (the AGC's input), from a fresh state
+    fst, auds = chain.init_state(), []
+    for x in blocks:
+        xt = torch.as_tensor(x, device=dev)
+        fst["front"], y = chain.front(fst["front"], xt)
+        fst["bp"], y = chain.bp(fst["bp"], y)
+        fst["demod"], aud = chain.demod(fst["demod"], y)
+        auds.append(aud)
+    wst = st["agc"]
+    agc_ms = cuda_ms(lambda: chain.agc(wst, auds[-1]), 20)
+    agc_launches = count_launches(lambda: chain.agc(wst, auds[-1]))
+    ev_ms, host_ms = step_ms(chain, blocks, WCP_BLOCKS, warmup=2)
+    budget = chain.block_in / FS * 1e3
+    idle = device_idle("WcpAGC chain", chain, blocks, ev_ms)
+    print(f"timing of the WcpAGC chain [{smi}]:", flush=True)
+    print(f"  WcpAGC chain {ev_ms:.4f} ms/block (device events), "
+          f"{host_ms:.4f} ms/block (host clock), real-time factor "
+          f"{budget / ev_ms:.2f}x of {budget:.2f} ms; its {len(blocks)} "
+          f"checked blocks by the host clock, each with its upload from "
+          f"numpy: " + ", ".join(f"{v:.3f}" for v in ms), flush=True)
+    print(f"  WcpAGC stage alone {agc_ms:.4f} ms (CUDA events), "
+          f"{agc_launches} CUDA launches and copies; {n_wcp} kernel "
+          f"launches in {len(blocks)} blocks; integer states equal to the "
+          f"CPU chain's after {len(blocks)} blocks: {same}", flush=True)
+    # HangAGC over the same demod audio
+    hang = HangAGC.create(48000.0, device=dev)
+    hst = hang.init_state(C)
+    reset_launches()
+    for aud in auds:
+        hst, h = hang(hst, aud)
+    n_hang = agc_scan.hang_scan.launches
+    torch.cuda.synchronize()
+    assert n_hang == len(auds) and bool(torch.isfinite(h).all()), n_hang
+    hst_last = hst
+    hang_ms = cuda_ms(lambda: hang(hst_last, auds[-1]), 20)
+    print(f"  HangAGC over the chain's demod audio: {n_hang} kernel "
+          f"launches in {len(auds)} blocks, {hang_ms:.4f} ms a block (CUDA "
+          f"events)", flush=True)
+    report["wcp"] = {"blocks": len(blocks), "checked_host_ms": ms,
+                     "ms_per_block": ev_ms, "host_ms_per_block": host_ms,
+                     "realtime_factor": budget / ev_ms, "idle": idle,
+                     "agc_ms": agc_ms, "agc_launches": agc_launches,
+                     "cpu_match": match, "equal_int_states": same,
+                     "hang_ms": hang_ms}
+    return {"launches": {"wcp": n_wcp, "hang": n_hang},
+            "path_args": {"wcp": chain.agc.scan_inputs(wst, auds[-1])[1],
+                          "hang": hang.scan_inputs(hst, auds[-1])[1]}}
 
 
 # ------------------------------------------- timing of the new paths/kernels
@@ -1977,6 +2042,8 @@ LOOP_BLOCKS = 16
 LOOP_SNR_DB = 18.0         # tests/test_tx.py:117
 IMD_GAIN_DB = 12.0         # tests/test_puresignal.py:52
 SPEC_POWER_RTOL = 1e-4
+ALC_LAUNCHES_MAX = 40      # TxALC's CUDA launches a block (kernel + torch)
+TX_STEP_LAUNCHES_MAX = 200
 
 
 def tx_config() -> TxChainConfig:
@@ -2020,11 +2087,14 @@ def phase_tx(report: dict, rng) -> dict:
               for i in range(TX_BLOCKS)]
     st = tx.init_state()
     states, out = [], []
+    reset_launches()
     for b in blocks:
         states.append(st)
         st, iq = tx.step(st, torch.as_tensor(b, device=dev))
         out.append(iq)
     torch.cuda.synchronize()
+    n_alc = agc_scan.tx_alc_scan.launches
+    assert n_alc == TX_BLOCKS, n_alc
     for iq in out:
         assert iq.shape == (C, tx.block_tx) and iq.dtype == torch.complex64
         assert bool(torch.isfinite(torch.view_as_real(iq)).all())
@@ -2094,8 +2164,10 @@ def phase_tx(report: dict, rng) -> dict:
                          "alc_clips": clips, "alc_flips_same": flips_same,
                          "alc_flips_own": flips_own,
                          "alc_max_abs_err_same": worst_same,
-                         "image_db_worst": float(image.max())}
-    return {"tx": tx, "blocks": blocks, "state": states[1]}
+                         "image_db_worst": float(image.max()),
+                         "alc_launches": n_alc}
+    return {"tx": tx, "blocks": blocks, "state": states[1],
+            "alc_launches": n_alc}
 
 
 def count_launches(fn) -> int:
@@ -2111,10 +2183,14 @@ def count_launches(fn) -> int:
                and not getattr(e, "is_user_annotation", False))
 
 
-def phase_timing_tx(report: dict, smi: str, txr: dict) -> None:
+def phase_timing_tx(report: dict, smi: str, txr: dict) -> tuple:
+    """The TX step (events, host clock, idle share), its stages on one
+    block's real intermediates, the CUDA launches of TxALC (<= 40) and of
+    the whole step (<= 200).  Returns the ALC's [1024, 2048] arguments on
+    that block."""
     tx, blocks, st = txr["tx"], txr["blocks"], txr["state"]
     dev = torch.device(DEVICE)
-    ev_ms, host_ms = step_ms(tx, blocks, iters=3, warmup=1)
+    ev_ms, host_ms = step_ms(tx, blocks, iters=20, warmup=3)
     msps = C * tx.block_tx / (ev_ms * 1e-3) / 1e6
     # per stage on one block's real intermediates
     x = torch.as_tensor(blocks[1], device=dev)
@@ -2134,7 +2210,7 @@ def phase_timing_tx(report: dict, smi: str, txr: dict) -> None:
         "analytic_fir": cuda_ms(lambda: tx.analytic(st["analytic"], ac), 10),
         "preemphasis_compressor": cuda_ms(pre_comp, 10),
         "modulators": cuda_ms(lambda: tx.modulators(dict(st), x, z), 10),
-        "tx_alc": cuda_ms(lambda: tx.alc(st["alc"], iq), 1, warmup=0),
+        "tx_alc": cuda_ms(lambda: tx.alc(st["alc"], iq), 20),
         "interpolator": cuda_ms(lambda: tx.interp(st["interp"], iq_alc), 10),
         "tune_trim": cuda_ms(lambda: tx.place(dict(st), iq_up), 10),
     }
@@ -2146,16 +2222,19 @@ def phase_timing_tx(report: dict, smi: str, txr: dict) -> None:
           f"{TX_AUDIO_MS / ev_ms:.4f}x of {TX_AUDIO_MS:.2f} ms", flush=True)
     print("  TX stages (ms): " + ", ".join(f"{k} {v:.4f}"
                                            for k, v in stages.items()))
-    print(f"  CUDA launches a block: TxALC {alc_launches}, whole step "
-          f"{step_launches}", flush=True)
-    idle = device_idle("TX", tx, blocks, ev_ms, n=2, warmup=1,
-                       front_kernel=False)
+    print(f"  CUDA launches a block: TxALC {alc_launches} (at most "
+          f"{ALC_LAUNCHES_MAX}), whole step {step_launches} (at most "
+          f"{TX_STEP_LAUNCHES_MAX})", flush=True)
+    assert alc_launches <= ALC_LAUNCHES_MAX, alc_launches
+    assert step_launches <= TX_STEP_LAUNCHES_MAX, step_launches
+    idle = device_idle("TX", tx, blocks, ev_ms, front_kernel=False)
     report["tx_timing"] = {"ms_per_block": ev_ms, "host_ms_per_block":
                            host_ms, "msps_out": msps,
                            "realtime_factor": TX_AUDIO_MS / ev_ms,
                            "stages_ms": stages,
                            "launches_alc": alc_launches,
                            "launches_step": step_launches, "idle": idle}
+    return tx.alc.scan_inputs(st["alc"], iq)[1]
 
 
 def loopback_oracle(voice: np.ndarray, fm: bool) -> np.ndarray:
@@ -3232,6 +3311,12 @@ def phase_radio_tx(report: dict, smi: str, rng) -> None:
     keyed_ms = (time.perf_counter() - t0) / RADIO_TX_BLOCKS * 1e3
     smeter = r.smeter_db()
     n_launch = count_launches(r.run_once)
+    # the TX step and its ALC on a keyed block, alone
+    mic = torch.as_tensor(voice[None, :AUDIO_BLOCK], device=r.device)
+    tst = r._tx_state
+    _, iq_pre = r.tx.pre_alc(tst, mic)
+    tx_launches = count_launches(lambda: r.tx.step(tst, mic))
+    alc_launches = count_launches(lambda: r.tx.alc(tst["alc"], iq_pre))
     r.set_ptt(False)
     r.run_once()
     r.close()
@@ -3253,9 +3338,13 @@ def phase_radio_tx(report: dict, smi: str, rng) -> None:
           f"identical inputs: mic x1 {clip_check[1.0]}, mic x8 "
           f"{clip_check[8.0]}; voice rho {rho:.4f} at lag {lag}; S-meter "
           f"{smeter:.2f} dB", flush=True)
-    print(f"Radio TX timing [{smi}]: a keyed run_once {keyed_ms:.1f} ms "
-          f"(host clock), {n_launch} CUDA launches and copies a block",
+    print(f"Radio TX timing [{smi}]: a keyed run_once {keyed_ms:.4f} ms "
+          f"(host clock), {n_launch} CUDA launches and copies a block; the "
+          f"TX step alone {tx_launches} (at most {TX_STEP_LAUNCHES_MAX}), "
+          f"its TxALC {alc_launches} (at most {ALC_LAUNCHES_MAX})",
           flush=True)
+    assert tx_launches <= TX_STEP_LAUNCHES_MAX, tx_launches
+    assert alc_launches <= ALC_LAUNCHES_MAX, alc_launches
     assert min(snr) >= RADIO_TX_DB, snr
     assert all(f == 0 for _, f in clip_check.values()), clip_check
     assert clip_check[8.0][0] > 0, clip_check
@@ -3263,7 +3352,8 @@ def phase_radio_tx(report: dict, smi: str, rng) -> None:
     assert smeter > RADIO_SMETER_DB, smeter
     report["radio_tx"] = {"cpu_match_db": snr, "alc": {
         str(k): v for k, v in clip_check.items()}, "rho": rho,
-        "smeter_db": smeter, "keyed_ms": keyed_ms, "launches": n_launch}
+        "smeter_db": smeter, "keyed_ms": keyed_ms, "launches": n_launch,
+        "launches_tx_step": tx_launches, "launches_alc": alc_launches}
 
 
 def voice_correlation(voice: np.ndarray, audio: np.ndarray
@@ -3341,6 +3431,194 @@ def phase_cli(report: dict, smi: str) -> None:
 
 
 
+# ------------------------------- slice 7c: the AGC / ALC recurrence kernel
+AGC_SRC = "quisk_tpu_torch/csrc/agc_scan.cu"
+AGC_SHAPES = ((1, 1), (1, 7), (1, 2048), (33, 1), (33, 7), (33, 2048))
+AGC_SPLIT = (33, 2048, 777)       # one call against two, cut at sample 777
+AGC_ULP = 2                       # WcpAGC's gain where log10f and torch's
+#                                   log10 differ on the card
+# short WDSP time constants (tests/test_torch_agc.py), so that every state
+# of the machine occurs within a short call
+WCP_SHORT = dict(hangtime=0.01, tau_decay=0.02, tau_hang_decay=0.01,
+                 tau_fast_backaverage=0.02, tau_hang_backmult=0.05,
+                 hang_thresh=0.1)
+AGC_WRAPPERS = {"tx_alc": agc_scan.tx_alc_scan, "wcp": agc_scan.wcp_scan,
+                "hang": agc_scan.hang_scan}
+AGC_PLAIN = {"tx_alc": agc_scan.tx_alc_plain, "wcp": agc_scan.wcp_plain,
+             "hang": agc_scan.hang_plain}
+# the JAX package's per-sample scans the modes replace (no Pallas kernel)
+AGC_REPLACES = {"tx_alc": "quisk_tpu/ops/agc.py:447",
+                "wcp": "quisk_tpu/ops/agc.py:318",
+                "hang": "quisk_tpu/ops/agc.py:166"}
+AGC_PATHS = {"tx_alc": "TX", "wcp": "WcpAGC chain",
+             "hang": "HangAGC over the WcpAGC chain's demod audio"}
+
+
+def agc_signal(rng, rows: int, n: int) -> np.ndarray:
+    """Tone bursts (6 ms in 12 ms) at per-row levels over noise, a quiet
+    tail: every branch of the three recurrences occurs."""
+    t = np.arange(n) / 48000.0
+    f = rng.uniform(300.0, 2500.0, (rows, 1))
+    x = np.sin(2 * np.pi * f * t) * ((t % 0.012) < 0.006)
+    x = (x * rng.choice([2.0, 1.0, 0.1, 0.01], (rows, 1))
+         + 1e-4 * rng.standard_normal((rows, n)))
+    x[:, int(0.8 * n):] *= 0.05
+    return x.astype(np.float32)
+
+
+def agc_case(mode: str, rng, rows: int, B: int, dev,
+             hang_enable: bool = True) -> tuple:
+    """One block's arguments of ``mode``'s wrapper on the card: seeded
+    signal through its op's ``scan_inputs``, from a random mid-run state.
+    The ALC's rows: bursts (most clip), a constant-envelope row at the clip
+    threshold (row 1) and a silent one (row 2)."""
+    def u(lo, hi, shape=(rows,)):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(
+            np.float32), device=dev)
+
+    def ints(hi, shape=(rows,)):
+        return torch.as_tensor(rng.integers(0, hi, shape).astype(np.int32),
+                               device=dev)
+    if mode == "tx_alc":
+        op = TxALC.create(48000.0, channels=rows, device=dev, mode=[
+            TX_MODES[c % 2] for c in range(rows)])
+        A = op.buf
+        x = 2.0 * (agc_signal(rng, rows, B) + 1j * agc_signal(rng, rows, B))
+        if rows > 2:
+            x[1] = 1.3 * np.exp(0.05j * np.arange(B))
+            x[2] *= 1e-5
+        st = op.init_state(rows)
+        st.update(gain_now=u(0.3, 1.5, (rows, op.n_modes)),
+                  gain_change=u(-2e-4, 2e-4), final_gain=u(0.3, 1.5),
+                  next_change=torch.where(u(0, 1) < 0.5, u(0, 1e-4),
+                                          torch.full_like(u(0, 1), 1e10)),
+                  counter=torch.floor(u(0, 400)),
+                  fault=torch.floor(u(0, 960)), block_index=ints(A),
+                  index=ints(A, ()))
+        return op.scan_inputs(st, torch.as_tensor(x.astype(np.complex64),
+                                                  device=dev))[1]
+    x = torch.as_tensor(agc_signal(rng, rows, B), device=dev)
+    if mode == "wcp":
+        op = WcpAGC.create(48000.0, device=dev, hang_enable=hang_enable,
+                           **WCP_SHORT)
+        st = op.init_state(rows)
+        st.update(delay=torch.as_tensor(agc_signal(rng, rows, op.lookahead),
+                                        device=dev),
+                  volts=u(1e-3, 1.0), save_volts=u(1e-3, 1.0),
+                  fast_ba=u(0.0, 0.5), hang_ba=u(0.0, 0.5),
+                  hang_counter=ints(op.hang_samples + 1), state=ints(5),
+                  decay_type=ints(2))
+        return op.scan_inputs(st, x)[1]
+    op = HangAGC.create(48000.0, device=dev, hang_ms=5.0,
+                        release_db_per_s=600.0)
+    st = (torch.as_tensor(agc_signal(rng, rows, op.lookahead), device=dev),
+          u(-2.0, 2.0), ints(op.hang_samples + 1))
+    return op.scan_inputs(st, x)[1]
+
+
+def check_agc(mode: str, args: tuple) -> dict:
+    """The kernel against its plain version on the same tensors: every
+    state bit-equal (integer and float), TxALC's clip decisions equal, the
+    outputs bit-equal, but WcpAGC's gain within AGC_ULP ulp (log10f against
+    torch's log10; the samples off are counted).  One launch."""
+    xs, st, coef, kw = args
+    fn = AGC_WRAPPERS[mode]
+    n0 = fn.launches
+    k = fn(*xs, st, coef, **kw)
+    p = AGC_PLAIN[mode](*xs, st, coef, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1, (mode, fn.launches, n0)
+    for i, (a, b) in enumerate(zip(k[0], p[0])):
+        assert a.dtype == b.dtype and torch.equal(a, b), (mode, "state", i)
+    ky, py = k[1], p[1]
+    assert bool(torch.isfinite(ky).all()), mode
+    out = {"max_abs_err": float((ky - py).abs().max()),
+           "bit_equal": bool(torch.equal(ky, py))}
+    if mode == "tx_alc":
+        assert torch.equal(k[2], p[2]), (mode, int((k[2] != p[2]).sum()))
+        out["clips"] = int(k[2].sum())
+    if mode == "wcp":
+        ulp = (ky.view(torch.int32) - py.view(torch.int32)).abs()
+        out["samples_off"] = int((ulp > 0).sum())
+        out["ulp_max"] = int(ulp.max())
+        assert out["ulp_max"] <= AGC_ULP, (mode, out)
+    else:
+        assert out["bit_equal"], (mode, out)
+    return out
+
+
+def agc_bound(mode: str, rows: int, B: int) -> dict:
+    """Each input read once and each output written once (4 B a sample
+    each: TxALC magn in and gain out, WcpAGC rm and ao in and mult out,
+    HangAGC the limit in and the log-gain out), the state read and
+    written, coef; operations: a step's float32 arithmetic on its common
+    path (TxALC's observing step 17, WcpAGC's 34 with log10 counted one,
+    HangAGC's 8)."""
+    b_in, b_out, words, n_coef, ops = {"tx_alc": (4, 4, 7, 5, 17),
+                                       "wcp": (8, 4, 7, 12, 34),
+                                       "hang": (4, 4, 2, 1, 8)}[mode]
+    nbytes = rows * B * (b_in + b_out) + 2 * rows * words * 4 + n_coef * 4
+    return bound(nbytes, rows * B * ops)
+
+
+def phase_agc_kernel(report: dict, smi: str, rng, path_args: dict) -> dict:
+    """csrc/agc_scan.cu in its three modes against the plain versions on the
+    card at shapes off the paths' (C = 1 and 33, one past its 32-channel
+    block; B = 1, 7 and 2048; WcpAGC with hang on and off by turns), a block
+    cut in two calls at an odd sample equal to one call bit for bit, and
+    the paths' own [1024, 2048] arguments, with the time of each mode, its
+    plain version and its bound."""
+    dev = torch.device(DEVICE)
+    out = {}
+    print(f"the AGC / ALC kernel [{smi}]:", flush=True)
+    for mode, fn in AGC_WRAPPERS.items():
+        res = []
+        for i, (Cs, Bs) in enumerate(AGC_SHAPES):
+            r = check_agc(mode, agc_case(mode, rng, Cs, Bs, dev,
+                                         hang_enable=i % 2 == 0))
+            res.append({"C": Cs, "B": Bs, **r})
+        print(f"  agc_scan {mode} at (C, B) " + ", ".join(
+            f"({r['C']}, {r['B']})" for r in res) + ": states bit-equal, "
+            f"outputs bit-equal {[r['bit_equal'] for r in res]}, max "
+            f"|kernel - plain| {max(r['max_abs_err'] for r in res):.3e}"
+            + (f", samples off {[r['samples_off'] for r in res]} (at most "
+               f"{max(r['ulp_max'] for r in res)} ulp)" if mode == "wcp"
+               else "")
+            + (f", clips {[r['clips'] for r in res]}" if mode == "tx_alc"
+               else ""), flush=True)
+        Cs, Bs, cut = AGC_SPLIT
+        xs, st, coef, kw = agc_case(mode, rng, Cs, Bs, dev)
+        n0 = fn.launches
+        one = fn(*xs, st, coef, **kw)
+        a = fn(*(x[:, :cut] for x in xs), st, coef, **kw)
+        b = fn(*(x[:, cut:] for x in xs), a[0], coef, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 3, mode
+        assert all(torch.equal(p, q) for p, q in zip(one[0], b[0])), mode
+        assert all(torch.equal(one[i], torch.cat([a[i], b[i]], -1))
+                   for i in range(1, len(one))), mode
+        print(f"  agc_scan {mode} C={Cs} B={Bs}: two calls cut at {cut} "
+              f"equal one call bit for bit", flush=True)
+        args = path_args[mode]
+        xs, st, coef, kw = args
+        pr = check_agc(mode, args)
+        run = dict(kw, clips=False) if mode == "tx_alc" else kw
+        t = {"ms": cuda_ms(lambda: fn(*xs, st, coef, **run), 20),
+             "plain_ms": cuda_ms(lambda: AGC_PLAIN[mode](*xs, st, coef, **kw),
+                                 1, warmup=0),
+             **agc_bound(mode, *xs[0].shape), "library_ms": None}
+        print(f"  agc_scan {mode} on the {AGC_PATHS[mode]} path's "
+              f"{list(xs[0].shape)}: {pr}; {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.1f} ms, library none, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+              f"({t['mbytes']:.1f} MB, {t['gflop']:.3f} GFLOP)", flush=True)
+        out[mode] = {"shapes": res, "path": pr, **t}
+    report["agc_kernel"] = out
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {m: {"max_abs_err": o["path"]["max_abs_err"],
+                **{k: o[k] for k in keys}} for m, o in out.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -3358,7 +3636,7 @@ def main(argv=None) -> int:
     gk = phase_gain_kernels(report, rng)
     featured, f_blocks, n_nb, n_gained = phase_featured(report, rng)
     nfm, n_blocks, k_nfm = phase_nfm(report, smi, rng)
-    phase_wcp(report, blocks)
+    wcp = phase_wcp(report, smi, blocks)
     gtimes = phase_timing_featured(report, smi, featured, f_blocks, nfm,
                                    n_blocks, gk)
     phase_front_cond(report, f_blocks)
@@ -3410,7 +3688,8 @@ def main(argv=None) -> int:
     # the TX path and the spectrum services draw from a stream of their own
     rng_tx = np.random.default_rng(SEED + 2)
     txr = phase_tx(report, rng_tx)
-    phase_timing_tx(report, smi, txr)
+    alc_args = phase_timing_tx(report, smi, txr)
+    n_alc = txr["alc_launches"]
     del txr
     phase_loopback(report, rng_tx)
     phase_puresignal(report)
@@ -3449,6 +3728,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_radio_tx(report, smi, rng_he)
     phase_cli(report, smi)
+    # slice 7c: the AGC / ALC kernel, from a stream of its own
+    rng_agc = np.random.default_rng(SEED + 5)
+    agc_times = phase_agc_kernel(report, smi, rng_agc,
+                                 {"tx_alc": alc_args, **wcp["path_args"]})
+    launched = {"tx_alc": n_alc, **wcp["launches"]}
+    kernels += [{"name": f"agc_scan_{m}", "route": "cuda", "source": AGC_SRC,
+                 "replaces": AGC_REPLACES[m], "path": AGC_PATHS[m],
+                 "launches": launched[m], **agc_times[m]}
+                for m in AGC_WRAPPERS]
     report["kernels"] = kernels
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

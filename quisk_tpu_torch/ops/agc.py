@@ -9,9 +9,11 @@ log-depth (Hillis-Steele doubling).  The lookahead envelope is a sliding
 maximum by the van Herk two-pass cummax.
 
 :class:`HangAGC` and :class:`WcpAGC` (wdsp/wcpAGC.c) carry a state machine
-that decides per sample, so they run a per-sample loop over the block
-(ops/scanutil.py) with the channels vectorised.  So does the TX path's
-:class:`TxALC` (microphone.c:270-358).
+that decides per sample, and so does the TX path's :class:`TxALC`
+(microphone.c:270-358).  Each runs its recurrence through ops/agc_scan.py:
+one kernel launch a block on a card (``csrc/agc_scan.cu``, one thread a
+channel), the plain per-sample loop on the CPU; what depends on the input
+alone stays here as torch ops, once a block.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from quisk_tpu_torch._device import resolve_device
-from quisk_tpu_torch.ops.scanutil import time_scan
+from quisk_tpu_torch.ops.agc_scan import (WCP_COEF, hang_scan,
+                                          tx_alc_scan, wcp_scan)
 from quisk_tpu_torch.oracle.wcpagc import WcpParams
 
 
@@ -160,32 +163,27 @@ class HangAGC:
                 torch.zeros((channels,), dtype=torch.float32, device=dev),
                 torch.zeros((channels,), dtype=torch.int32, device=dev))
 
-    def __call__(self, state, a: torch.Tensor):
+    def scan_inputs(self, state, a: torch.Tensor):
+        """(ext, (xs, carry, coef, params)): the delay line with the block,
+        and the arguments of ``hang_scan`` for this block."""
         delay, lg0, hang0 = state
         W, B = self.lookahead, a.shape[-1]
         ext = torch.cat([delay, a], dim=-1)
         limit = _gain_limit(torch.abs(ext), W, B, self.target,
                             self.max_lgain)
-        hang_full = torch.full_like(hang0, self.hang_samples)
+        return ext, ((limit,), (lg0, hang0), self.release_inc.reshape(1),
+                     {"hang_samples": self.hang_samples})
 
-        def step(carry, lim):
-            lg, hang = carry
-            attack = lim < lg                      # must reduce gain now
-            lg = torch.where(attack, lim, torch.where(
-                hang > 0, lg, torch.minimum(lg + self.release_inc, lim)))
-            hang = torch.where(attack, hang_full,
-                               torch.clamp(hang - 1, min=0))
-            return (lg, hang), lg
-
-        (lg_f, hang_f), lg = time_scan(step, (lg0, hang0), limit)
+    def __call__(self, state, a: torch.Tensor):
+        W, B = self.lookahead, a.shape[-1]
+        ext, (xs, carry, coef, kw) = self.scan_inputs(state, a)
+        (lg_f, hang_f), lg = hang_scan(*xs, carry, coef, **kw)
         return (ext[:, ext.shape[-1] - W:], lg_f, hang_f), (
             ext[:, :B] * torch.exp(lg))
 
 
-_WCP_CONSTANTS = ("attack_mult", "decay_mult", "fast_decay_mult",
-                  "fast_backmult", "hang_backmult", "hang_decay_mult",
-                  "out_target", "min_volts", "slope_constant", "hang_level",
-                  "pop_ratio", "inv_max_input")
+_WCP_CARRY = ("volts", "save_volts", "fast_ba", "hang_ba", "hang_counter",
+              "state", "decay_type")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,9 +198,9 @@ class WcpAGC:
     ``mult = (out_target - slope*min(0, log10(volts/max_input)))/volts``.
 
     Held sample for sample to the float64 oracle (oracle/wcpagc.py).  The
-    window max is block-parallel (van Herk); the state machine is a
-    per-sample Python loop over the block with channels vectorised — exact
-    but slow on a card (thousands of small launches per block).
+    window max is block-parallel (van Herk); the state machine runs
+    through ``ops.agc_scan.wcp_scan``: one kernel launch a block on a card,
+    a per-sample loop with the channels vectorised on the CPU.
 
     ``k`` holds the derived constants (loadWcpAGC, wcpAGC.c:115-146) as
     0-dim float32 tensors.  State: a dict of delay [C, lookahead], volts,
@@ -221,7 +219,7 @@ class WcpAGC:
         d = {**p.derived(), "pop_ratio": p.pop_ratio,
              "inv_max_input": 1.0 / p.max_input}
         k = {name: torch.tensor(np.float32(d[name]), device=device)
-             for name in _WCP_CONSTANTS}
+             for name in WCP_COEF}
         return cls(k=k, hang_samples=d["hangtime_samples"],
                    hang_enable=bool(p.hang_enable),
                    lookahead=p.attack_buffsize)
@@ -240,83 +238,27 @@ class WcpAGC:
             "decay_type": z(torch.int32),
         }
 
-    def __call__(self, state, a: torch.Tensor):
-        st, k = state, self.k
+    def scan_inputs(self, state, a: torch.Tensor):
+        """(ext, (xs, carry, coef, params)): the delay line with the block,
+        and the arguments of ``wcp_scan`` for this block."""
         A, B = self.lookahead, a.shape[-1]
-        ext = torch.cat([st["delay"], a], dim=-1)          # [C, A+B]
+        ext = torch.cat([state["delay"], a], dim=-1)       # [C, A+B]
         env_ext = torch.abs(ext)
         # trailing attack-window max ending at each input sample: with the
         # carried samples this is the right-looking window at offset 1
         ring_max = sliding_max(env_ext[:, 1:], A)[:, :B]
         abs_out = env_ext[:, :B]                           # delayed by A
-        where = torch.where
+        return ext, ((ring_max, abs_out),
+                     tuple(state[n] for n in _WCP_CARRY),
+                     torch.stack([self.k[n] for n in WCP_COEF]),
+                     {"hang_samples": self.hang_samples,
+                      "hang_enable": self.hang_enable})
 
-        def const(v):
-            return torch.full_like(st["state"], v)
-        c0, c1, c2, c3, c4 = (const(v) for v in range(5))
-        hang_full = const(self.hang_samples)
-
-        def step(carry, xs):
-            volts, save, fba, hba, hc, s, dt = carry
-            rm, ao = xs
-            fba = k["fast_backmult"] * ao + (1 - k["fast_backmult"]) * fba
-            hba = k["hang_backmult"] * ao + (1 - k["hang_backmult"]) * hba
-            hc = torch.clamp(hc - 1, min=0)
-
-            dv = rm - volts
-            att = volts + dv * k["attack_mult"]
-            dec = volts + dv * k["decay_mult"]
-            fdec = volts + dv * k["fast_decay_mult"]
-            hdec = volts + dv * k["hang_decay_mult"]
-            attack = rm >= volts
-            if self.hang_enable:
-                hang_ok = hba > k["hang_level"]
-            else:
-                hang_ok = torch.zeros_like(attack)
-
-            # state 0: attack / pop fast-decay / hang entry / decay
-            pop = volts > k["pop_ratio"] * fba
-            v0 = where(attack, att, where(pop, fdec,
-                                          where(hang_ok, volts, dec)))
-            s0 = where(attack, c0, where(pop, c1, where(hang_ok, c2, c3)))
-            enter_hang = ~attack & ~pop & hang_ok
-            hc0 = where(enter_hang, hang_full, hc)
-            dt0 = where(attack | pop, dt, where(hang_ok, c1, c0))
-            # state 1: fast decay toward save_volts
-            above = volts > save
-            v1 = where(attack, att, where(above, fdec, where(
-                hc > 0, volts, where(dt == 0, dec, hdec))))
-            s1 = where(attack, c0, where(above, c1, where(
-                hc > 0, c2, where(dt == 0, c3, c4))))
-            # state 2: hang hold
-            v2 = where(attack, att, where(hc == 0, hdec, volts))
-            s2 = where(attack, c0, where(hc == 0, c4, c2))
-            # states 3 / 4: plain decay / post-hang decay
-            v3 = where(attack, att, dec)
-            s3 = where(attack, c0, c3)
-            v4 = where(attack, att, hdec)
-            s4 = where(attack, c0, c4)
-
-            # re-entering attack from 2/3/4 snapshots save_volts
-            save = where((s >= 2) & attack, volts, save)
-            volts_n = where(s == 0, v0, where(s == 1, v1, where(
-                s == 2, v2, where(s == 3, v3, v4))))
-            s_n = where(s == 0, s0, where(s == 1, s1, where(
-                s == 2, s2, where(s == 3, s3, s4))))
-            hc = where(s == 0, hc0, hc)
-            dt = where(s == 0, dt0, dt)
-
-            volts_n = torch.maximum(volts_n, k["min_volts"])
-            mult = (k["out_target"] - k["slope_constant"] * torch.clamp(
-                torch.log10(k["inv_max_input"] * volts_n), max=0.0)
-                    ) / volts_n
-            return (volts_n, save, fba, hba, hc, s_n, dt), mult
-
-        names = ("volts", "save_volts", "fast_ba", "hang_ba", "hang_counter",
-                 "state", "decay_type")
-        carry, mult = time_scan(step, tuple(st[n] for n in names),
-                                (ring_max, abs_out))
-        new_st = dict(zip(names, carry))
+    def __call__(self, state, a: torch.Tensor):
+        A, B = self.lookahead, a.shape[-1]
+        ext, (xs, carry, coef, kw) = self.scan_inputs(state, a)
+        carry, mult = wcp_scan(*xs, carry, coef, **kw)
+        new_st = dict(zip(_WCP_CARRY, carry))
         new_st["delay"] = ext[:, ext.shape[-1] - A:]
         return new_st, ext[:, :B] * mult
 
@@ -343,8 +285,9 @@ class TxALC:
     gathered once a block and scattered back once a block, so the loop
     carries eight values per channel: the gain and ``gain_change``,
     ``final_gain``, ``next_change``, ``counter``, ``fault``,
-    ``block_index``, ``index``.  The loop is a Python loop over time
-    (``time_scan``), ~37 tensor ops a sample.
+    ``block_index``, ``index``.  The loop is ``ops.agc_scan.tx_alc_scan``:
+    one kernel launch a block on a card, ~37 tensor ops a sample on the
+    CPU.
 
     State: ``buffer`` complex64 [C, buf]; ``gain_now`` [C, n_modes];
     the float32 [C] carries above; ``block_index`` int32 [C]; ``index``
@@ -396,65 +339,39 @@ class TxALC:
         }
 
     def __call__(self, state, x: torch.Tensor):
-        st, out, _ = self.trace(state, x)
+        st, out, _ = self._step(state, x, False)
         return st, out
 
     def trace(self, state, x: torch.Tensor):
         """As ``__call__``, and also the per-sample clip decisions
         [C, B] bool: (state, out, clips)."""
+        return self._step(state, x, True)
+
+    def scan_inputs(self, state, x: torch.Tensor):
+        """(ext, (xs, carry, coef, params)): the delay line with the block,
+        and the arguments of ``tx_alc_scan`` for this block (the carry
+        starts from the active mode's gain)."""
         st = state
-        B = x.shape[-1]
-        A = self.buf
         ext = torch.cat([st["buffer"], x.to(torch.complex64)], dim=-1)
-        out_raw = ext[:, :B]                                  # x delayed A
         # |x| as mul, add, sqrt: correctly rounded element ops, so the card
         # and the CPU see the same magnitudes and take the same branches
         magn = torch.sqrt(x.real * x.real + x.imag * x.imag).to(torch.float32)
-        # the terms that depend on the input alone, for the whole block
-        t_over_m = self.target / torch.clamp(magn, min=1e-9)
-        silent = magn < self.min_magn
-        loud_f = (~silent).to(torch.float32)
-        silent_f = silent.to(torch.float32)
-        idx = torch.remainder(
-            st["index"].to(torch.int64)
-            + torch.arange(B, device=x.device), A).to(torch.int32)
         g0 = st["gain_now"].gather(1, self.mode[:, None])[:, 0]
-        tgt, lo, hi = self.target, self.gain_min, self.gain_max
-        where = torch.where
+        coef = torch.stack([self.target, self.gain_min, self.gain_max,
+                            self.d_limit, self.min_magn])
+        carry = (g0,) + tuple(st[k] for k in _ALC_CARRY) + (st["index"],)
+        return ext, ((magn,), carry, coef, {"buf": self.buf})
 
-        def step(carry, xs):
-            g, gc, fg, nc, cnt, flt, bi = carry
-            mg, tm, sil, ld, sf, ix = xs
-            clip = mg * (g + gc * A) > tgt
-            # clip: down-ramp to land exactly at the safe gain
-            fg1 = torch.clamp(g + (tm - g) / A * A, lo, hi)
-            gc1 = (fg1 - g) / A
-            # block complete: recovery ramp from the observed headroom,
-            # bounded by the gain-doubling time
-            blk = bi == ix
-            gc2 = where(flt < A - 10, torch.clamp(nc, max=self.d_limit), gc)
-            fg2 = torch.clamp(g + gc2 * A, lo, hi)
-            gc2 = (fg2 - g) / A
-            # observe
-            cnt3 = cnt + ld
-            d3 = (tm - fg) / torch.clamp(cnt3, min=1.0)
-            nc3 = where(sil, nc, torch.minimum(nc, d3))
-            rst = clip | blk
-            gc_n = where(clip, gc1, where(blk, gc2, gc))
-            fg_n = where(clip, fg1, where(blk, fg2, fg))
-            carry = (g + gc_n, gc_n, fg_n, where(rst, 1e10, nc3),
-                     where(rst, 0.0, cnt3), where(rst, 0.0, flt + sf),
-                     where(clip, ix, bi))
-            return carry, (g, clip)
-
-        carry0 = (g0,) + tuple(st[k] for k in _ALC_CARRY)
-        carry, (gains, clips) = time_scan(
-            step, carry0, (magn, t_over_m, silent, loud_f, silent_f, idx))
-        new_st = dict(zip(_ALC_CARRY, carry[1:]))
-        new_st["index"] = ((idx[-1] + 1) % A).to(torch.int32)
+    def _step(self, state, x: torch.Tensor, with_clips: bool):
+        st, B, A = state, x.shape[-1], self.buf
+        ext, (xs, carry0, coef, kw) = self.scan_inputs(state, x)
+        carry, gains, clips = tx_alc_scan(*xs, carry0, coef, **kw,
+                                          clips=with_clips)
+        g0 = carry0[0]
+        new_st = dict(zip(_ALC_CARRY + ("index",), carry[1:]))
         new_st["buffer"] = ext[:, ext.shape[-1] - A:]
         onehot = torch.nn.functional.one_hot(
             self.mode, self.n_modes).to(torch.float32)
         new_st["gain_now"] = (st["gain_now"]
                               + (carry[0] - g0)[:, None] * onehot)
-        return new_st, out_raw * gains, clips
+        return new_st, ext[:, :B] * gains, clips

@@ -113,7 +113,7 @@ def test_port_sources_cover_the_pfb_and_conditioner_modules():
     csrc = Path(__file__).resolve().parents[1] / "quisk_tpu_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "fused_tune_decimate.cu", "pfb_poly.cu", "pfb_demod.cu",
-        "pll_demod.cu"}
+        "pll_demod.cu", "agc_scan.cu"}
     for cu in csrc.glob("*.cu"):               # hand kernels: no library
         text = cu.read_text()
         assert "cublas" not in text.lower() and "cufft" not in text.lower()
