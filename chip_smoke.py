@@ -222,11 +222,18 @@ Phases, each fatal on failure:
     log10f and torch's log10 differ, the samples counted), one launch a
     call; a block cut in two calls at an odd sample equal to one call bit
     for bit; each mode on its path's own [1024, 2048] arguments, timed with
-    its plain version and bound.
+    its plain version and bound; then (from a stream of its own, SEED + 6)
+    the kernel's edges held the same way: B one short of its register tile,
+    the tile and one past it, C = 1025 (one channel past a full grid of
+    32-channel blocks), rows cut 2 samples in and rows of stride B + 1 (not
+    16-byte aligned); and each mode's time at C = 1, and at C = 32 on 32
+    distinct rows and on 32 copies of one row, beside its [1024, 2048]
+    time, the earlier design's, the byte bound and the estimate of its
+    dependent chain read from the kernel's SASS.
 
 Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
 20-23 from another (SEED + 3), phases 24-28 from another (SEED + 4), phase
-29 from another (SEED + 5).
+29 from another (SEED + 5) and its edges from another (SEED + 6).
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
@@ -3435,6 +3442,15 @@ def phase_cli(report: dict, smi: str) -> None:
 AGC_SRC = "quisk_tpu_torch/csrc/agc_scan.cu"
 AGC_SHAPES = ((1, 1), (1, 7), (1, 2048), (33, 1), (33, 7), (33, 2048))
 AGC_SPLIT = (33, 2048, 777)       # one call against two, cut at sample 777
+# the edges of the kernel's register tile (B one short of it, it, one past
+# it) and one channel past a full grid of its 32-channel blocks at the
+# paths' width
+AGC_EDGE_SHAPES = ((33, agc_scan.TILE - 1), (33, agc_scan.TILE),
+                   (33, agc_scan.TILE + 1), (1025, 333))
+# the earlier design of the kernel (shared-memory tiles, steps that
+# branch) at the paths' [1024, 2048], chip_smoke.py on an H100 80GB HBM3 at
+# 700.00 W
+AGC_EARLIER_MS = {"tx_alc": 0.9078, "wcp": 0.9075, "hang": 0.4204}
 AGC_ULP = 2                       # WcpAGC's gain where log10f and torch's
 #                                   log10 differ on the card
 # short WDSP time constants (tests/test_torch_agc.py), so that every state
@@ -3516,6 +3532,17 @@ def agc_case(mode: str, rng, rows: int, B: int, dev,
     return op.scan_inputs(st, x)[1]
 
 
+def same_rows(args: tuple) -> tuple:
+    """The same wrapper arguments with every row (input and state) a copy
+    of row 0: the lanes of a warp then take the same path at every
+    sample."""
+    xs, st, coef, kw = args
+    C = xs[0].shape[0]
+    return (tuple(x[:1].repeat(C, 1) for x in xs),
+            tuple(s[:1].repeat(C) if s.dim() else s.clone() for s in st),
+            coef, kw)
+
+
 def check_agc(mode: str, args: tuple) -> dict:
     """The kernel against its plain version on the same tensors: every
     state bit-equal (integer and float), TxALC's clip decisions equal, the
@@ -3544,6 +3571,70 @@ def check_agc(mode: str, args: tuple) -> dict:
         assert out["ulp_max"] <= AGC_ULP, (mode, out)
     else:
         assert out["bit_equal"], (mode, out)
+    return out
+
+
+def agc_views(args: tuple) -> dict:
+    """The same call on inputs whose rows are not 16-byte aligned (the
+    kernel's vector loads then give way to one load a sample): rows 2
+    samples into rows of B + 4 (8 bytes off, every row alike at B = 2048),
+    and rows of stride B + 1 (each row off by another amount)."""
+    xs, st, coef, kw = args
+    cut = tuple(torch.nn.functional.pad(x, (2, 2))[:, 2:2 + x.shape[1]]
+                for x in xs)
+    wide = tuple(torch.nn.functional.pad(x, (0, 1))[:, :x.shape[1]]
+                 for x in xs)
+    return {"cut 2": (cut, st, coef, kw), "stride B+1": (wide, st, coef, kw)}
+
+
+# what the tile loop's hot path leaves out: the division's slow-path call,
+# local memory, the scan's global loads and its copies of the next tile in
+AGC_SLOW = ("CALL", "LDL", "STL", "LDG.", "LDGSTS")
+
+
+def agc_scan_role(body: list) -> list:
+    """The scan warp's part of a tile loop's SASS body: BRA.DIV (taken only
+    by a diverged warp) marked as the conditional branch it is, and where
+    the helper warp's part is laid out first (it ends in a jump over the
+    scan's wait for its copies, DEPBAR), that part dropped."""
+    from probe_pll import _target
+    body = [(a, op, o, o.split(",")[0]) if op.startswith("BRA.DIV")
+            else (a, op, o, g) for a, op, o, g in body]
+    dep = next(a for a, op, _, _ in body if op.startswith("DEPBAR"))
+    jumps = [a for a, op, o, g in body
+             if op == "BRA" and not g and a < dep < (_target(o) or 0)]
+    if not jumps:
+        return body
+    jump = max(jumps)
+    start = next(a for a, op, o, g in body
+                 if op.startswith("BRA") and g and _target(o) == jump + 16)
+    return [i for i in body if not start < i[0] <= jump]
+
+
+def agc_tile_estimates(funcs: dict) -> dict:
+    """Each mode's tile loop in the kernel's SASS (``funcs`` as
+    probe_pll.sass_functions returns it): the shortest loop that copies the
+    next tile in (LDGSTS) and waits for it (DEPBAR), agc_scan.TILE samples
+    a pass; per sample, the scan warp's (agc_scan_role) longest dependent
+    chain and in-order issue by probe_pll's latency table (TxALC's with
+    its clip / block-complete ramps, which it takes only when a lane of the
+    warp needs one), and the branches and convergence barriers on its hot
+    path."""
+    from probe_pll import chain_estimate, hot_path, sample_loop
+    out = {}
+    for name, ins in funcs.items():
+        # the template's instantiations, agc_scan_kernel<0|1|2>
+        mode = next(m for k, m in (("ILi0E", "tx_alc"), ("ILi1E", "wcp"),
+                                   ("ILi2E", "hang")) if k in name)
+        body = sample_loop(ins, need=("LDGSTS", "DEPBAR"))
+        assert body is not None, (mode, "no tile loop in the SASS")
+        body = agc_scan_role(body)
+        res = chain_estimate(body, agc_scan.TILE, AGC_SLOW)
+        hot = hot_path(body, AGC_SLOW)
+        res["branches_a_sample"] = {
+            op: sum(1 for i in hot if i[1].startswith(op)) / agc_scan.TILE
+            for op in ("BRA", "BSSY", "BSYNC")}
+        out[mode] = res
     return out
 
 
@@ -3613,10 +3704,68 @@ def phase_agc_kernel(report: dict, smi: str, rng, path_args: dict) -> dict:
               f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
               f"({t['mbytes']:.1f} MB, {t['gflop']:.3f} GFLOP)", flush=True)
         out[mode] = {"shapes": res, "path": pr, **t}
+    agc_edges(out, smi)
     report["agc_kernel"] = out
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {m: {"max_abs_err": o["path"]["max_abs_err"],
                 **{k: o[k] for k in keys}} for m, o in out.items()}
+
+
+def agc_edges(out: dict, smi: str) -> None:
+    """The kernel's own edges, from an RNG stream of their own (SEED + 6):
+    the tile's edges and one channel past a full grid (AGC_EDGE_SHAPES)
+    and rows that are not 16-byte aligned (agc_views), each bit-equal as
+    check_agc holds it; then each mode's time at C = 1, at C = 32 on 32
+    distinct rows and on 32 copies of one row (what lanes in different
+    states cost), beside its time on the path's [1024, 2048] (out), the
+    earlier design's, its byte bound and its SASS chain estimate."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 6)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    from probe_pll import sass_functions
+    cycles = agc_tile_estimates(
+        sass_functions(_kernels._target("agc_scan"))[1])
+    print(f"the AGC / ALC kernel's edges [{smi}]:", flush=True)
+    for mode, fn in AGC_WRAPPERS.items():
+        res = {}
+        for i, (Cs, Bs) in enumerate(AGC_EDGE_SHAPES):
+            res[f"({Cs}, {Bs})"] = check_agc(mode, agc_case(
+                mode, rng, Cs, Bs, dev, hang_enable=i % 2 == 0))
+        for label, args in agc_views(agc_case(mode, rng, 33, 2048,
+                                              dev)).items():
+            res[label] = check_agc(mode, args)
+        print(f"  agc_scan {mode} at (C, B) "
+              + ", ".join(k for k in res if k.startswith("("))
+              + " and on rows cut 2 samples in and of stride B+1: states "
+              f"bit-equal, outputs bit-equal "
+              f"{[r['bit_equal'] for r in res.values()]}, max |kernel - "
+              f"plain| {max(r['max_abs_err'] for r in res.values()):.3e}",
+              flush=True)
+        runs = {"C=1": agc_case(mode, rng, 1, 2048, dev)}
+        runs["C=32 distinct"] = agc_case(mode, rng, 32, 2048, dev)
+        runs["C=32 identical"] = same_rows(runs["C=32 distinct"])
+        ms = {}
+        for label, (xs, st, coef, kw) in runs.items():
+            run = dict(kw, clips=False) if mode == "tx_alc" else kw
+            ms[label] = cuda_ms(lambda: fn(*xs, st, coef, **run), 20)
+        B = 2048
+        keys = ("chain_cycles_a_sample", "in_order_cycles_a_sample")
+        est = {k: cycles[mode][k] * B / (mhz * 1e3) for k in keys}
+        o = out[mode]
+        print(f"  agc_scan {mode}: [1024, 2048] {o['ms']:.4f} ms (earlier "
+              f"design {AGC_EARLIER_MS[mode]:.4f}), byte bound "
+              f"{o['bytes_ms']:.4f} ms, SASS chain "
+              f"{est['chain_cycles_a_sample']:.4f} ms "
+              f"({cycles[mode]['chain_cycles_a_sample']:.2f} cycles a "
+              f"sample; in-order {est['in_order_cycles_a_sample']:.4f} ms, "
+              f"{cycles[mode]['in_order_cycles_a_sample']:.2f} cycles, at "
+              f"{mhz:.0f} MHz); " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+        o.update(edges=res, ms_by_rows=ms, earlier_ms=AGC_EARLIER_MS[mode],
+                 sass_cycles=cycles[mode], sass_ms=est, sm_clock_mhz=mhz)
 
 
 def main(argv=None) -> int:

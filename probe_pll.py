@@ -33,7 +33,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-import chip_smoke as cs
 from quisk_tpu_torch import _kernels
 from quisk_tpu_torch.ops import pll
 
@@ -77,14 +76,17 @@ def _target(ops: str):
     return int(m.group(1), 16) if m else None
 
 
-def hot_path(body: list) -> list:
+SLOW = ("CALL", "LDL", "STL", "LDG")
+
+
+def hot_path(body: list, slow: tuple = SLOW) -> list:
     """The loop body less its rare paths: the innermost span a forward
-    branch skips around a call, a local or global memory access or a loop
-    of its own (the range reductions of cosf / sinf for |x| >= 105615, the
-    division's slow path), and the span an unconditional forward branch
-    jumps over (the special cases of atan2f, of a zero or infinite
-    argument, and of the wrap)."""
-    slow = ("CALL", "LDL", "STL", "LDG")
+    branch skips around a call, a local or global memory access (the
+    opcodes that start with one of ``slow``) or a loop of its own (the
+    range reductions of cosf / sinf for |x| >= 105615, the division's slow
+    path), and the span an unconditional forward branch jumps over (the
+    special cases of atan2f, of a zero or infinite argument, and of the
+    wrap)."""
     spans = [(a, _target(o)) for a, op, o, _ in body
              if op.startswith("BRA") and (_target(o) or 0) > a]
     cut = set()
@@ -103,25 +105,28 @@ def hot_path(body: list) -> list:
     return [i for i in body if i[0] not in cut]
 
 
-def loop_chain(ins: list) -> dict:
-    """The sample loop (the shortest backward branch whose body holds the
-    shared-memory load of x and the store of y), its hot path
-    (:func:`hot_path`), and two estimates of one pass over it by LATENCY:
-    the longest dependent chain (each instruction ready a latency after
-    its last source), and in-order issue by one warp (each instruction
-    issued a cycle after the one before it, and not before its sources
-    are ready)."""
+def sample_loop(ins: list, need=("LDS", "STS")) -> list | None:
+    """The shortest loop (backward branch) whose body holds every opcode
+    of ``need``: by default the sample loop, which loads x from shared
+    memory and stores y there."""
     loops = []
     for addr, op, ops, _ in ins:
         t = _target(ops)
         if op.startswith("BRA") and t is not None and t < addr:
             body = [i for i in ins if t <= i[0] <= addr]
-            if {"LDS", "STS"} <= {i[1].split(".")[0] for i in body}:
+            if set(need) <= {i[1].split(".")[0] for i in body}:
                 loops.append(body)
-    if not loops:
-        return {"found": False}
-    body = min(loops, key=len)
-    hot = hot_path(body)
+    return min(loops, key=len) if loops else None
+
+
+def chain_estimate(body: list, per_pass: int, slow: tuple = SLOW) -> dict:
+    """Two estimates of one pass over the loop ``body``'s hot path
+    (:func:`hot_path`) by LATENCY, per sample (``per_pass`` samples a
+    pass): the longest dependent chain (each instruction ready a latency
+    after its last source), and in-order issue by one warp (each
+    instruction issued a cycle after the one before it, and not before its
+    sources are ready); ``slow`` as :func:`hot_path` takes it."""
+    hot = hot_path(body, slow)
     ready: dict[str, int] = {}
     issue = 0
     for _, op, ops, guard in hot:
@@ -136,7 +141,6 @@ def loop_chain(ins: list) -> dict:
         ready[rs[0]] = max(ready.get(rs[0], 0),
                            src_ready + LATENCY.get(base, DEFAULT_LATENCY))
     chain = max(ready.values())
-    per_pass = sum(1 for i in body if i[1].startswith("STS"))
     return {"found": True, "instructions": len(body),
             "hot_path_instructions": len(hot),
             "samples_a_pass": per_pass,
@@ -146,6 +150,16 @@ def loop_chain(ins: list) -> dict:
             "span": [body[0][0], body[-1][0]]}
 
 
+def loop_chain(ins: list) -> dict:
+    """The sample loop (:func:`sample_loop`) and :func:`chain_estimate` of
+    it, a sample a shared store."""
+    body = sample_loop(ins)
+    if body is None:
+        return {"found": False}
+    return chain_estimate(body, sum(1 for i in body
+                                    if i[1].startswith("STS")))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON to this file")
@@ -153,6 +167,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("probe_pll: no CUDA device", file=sys.stderr)
         return 2
+    # imported here: chip_smoke imports this module's SASS readers
+    import chip_smoke as cs
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -51,17 +51,25 @@ WCP_COEF = ("attack_mult", "decay_mult", "fast_decay_mult", "fast_backmult",
 _LAYOUT = {"tx_alc": (1, 6, 1, 5), "wcp": (2, 4, 3, len(WCP_COEF)),
            "hang": (1, 1, 1, 1)}
 _MAX_STATE = 8                           # the launcher's kMaxState
+#: samples a lane of the kernel holds in registers (its kTile): the edges of
+#: its tiles are shapes worth checking
+TILE = 16
 
 
-@functools.cache
-def _launcher():
-    fn = _kernels.load("agc_scan").agc_scan
+def bind(lib: ctypes.CDLL):
+    """The launcher ``agc_scan`` of a loaded build, its C types set."""
+    fn = lib.agc_scan
     ptr, i64, arr = ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(
         ctypes.c_void_p)
     fn.argtypes = [ctypes.c_int, ptr, i64, ptr, i64, arr, arr, ptr, ptr,
                    ptr, ctypes.c_int, i64, ctypes.c_int, ctypes.c_int, ptr]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _launcher():
+    return bind(_kernels.load("agc_scan"))
 
 
 def check(mode: str, xs: tuple, state: tuple, coef: torch.Tensor

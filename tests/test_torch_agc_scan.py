@@ -2,7 +2,9 @@
 versions the CPU runs, to which csrc/agc_scan.cu is held bit for bit on a
 card) against the JAX package's ops on the same numpy inputs (float32 on the
 CPU, torch on one thread), at shapes off the paths': one channel and one
-past a 32-channel block (C = 1, 33), blocks of 1, 7 and 2048 samples.
+past a 32-channel block (C = 1, 33), blocks of 1, 7 and 2048 samples, and
+blocks at the edges of the kernel's register tile (one short of
+``agc_scan.TILE`` samples, the tile, one past it).
 
 Tolerances are those of tests/test_torch_agc.py and
 tests/test_torch_tx_ops.py: ``TxALC`` gains within 1e-5 relative and its
@@ -27,7 +29,8 @@ from quisk_tpu_torch.oracle import wcpagc as oracle
 
 CPU = "cpu"
 FS = 48e3
-SHAPES = [(1, 1), (1, 7), (1, 2048), (33, 1), (33, 7), (33, 2048)]
+SHAPES = [(1, 1), (1, 7), (1, 2048), (33, 1), (33, 7), (33, 2048)] + [
+    (33, agc_scan.TILE + d) for d in (-1, 0, 1)]   # the kernel tile's edges
 # short time constants, so that pop, hang and hang decay all occur
 WCP_KW = dict(hangtime=0.01, tau_decay=0.02, tau_hang_decay=0.01,
               tau_fast_backaverage=0.02, tau_hang_backmult=0.05,
