@@ -148,8 +148,24 @@ Phases, each fatal on failure:
     against its plain version at shapes off the paths' (C not a multiple
     of its 32-channel block, B = 1, odd B, a short last tile; rows with a
     carrier >= 100 dB or within 1e-4 of the peak, rows of noise alone by
-    RMS), and a block cut in two calls at an odd sample equal to one
-    call, bit for bit;
+    RMS; and every output and carried state bit-equal, asserted), and a
+    block cut in two calls at an odd sample equal to one call, bit for
+    bit; after phase 22 (from a stream of its own, SEED + 7) its edges,
+    each bit-equal in every output and state (a NaN matching a NaN): B one
+    short of its 16-sample register tile, the tile and one past it, C = 1,
+    C = 1025 (one channel past a full grid of 32-channel blocks), rows cut
+    777 and 2 samples in and rows of stride B + 1 (not all 16-byte
+    aligned), rows with a NaN sample (the carried ph and fr NaN in both),
+    a state |ph| ~ 2e5 (sincosf's large-argument path), exact zeros and
+    constants (atan2f on a +-0 operand), [1024, 2048] of exact zeros, and
+    the kernel's sine and cosine against torch's cos and sin at 2 M angles
+    and its atan2 against torch's at 2 M operand pairs over the whole
+    float32 range; and
+    each mode's time at C = 1, at C = 32 on 32 distinct rows and on 32
+    copies of one row and on the zeros, beside its [1024, 2048] time, the
+    earlier design's, the byte bound and the estimates of its tile loop's
+    dependent chain and in-order issue from the kernel's SASS, with the
+    branches a sample left on its hot path;
 21. the PLL-NFM receiver (nfm_config with ext_demod="pll_fm": deviation 5
     kHz, CTCSS notch at 100 Hz; every row EXT; an FM station with voice
     and a 100 Hz tone on the even rows, 1e-4 noise on the odd rows) and
@@ -160,7 +176,8 @@ Phases, each fatal on failure:
     state at block 2 (> 90 dB, FM rows by RMS), the squelch open on the
     station rows only, the CTCSS line under the voice on row 0, the voice
     recovered on row 2 (> 6 dB); the kernel against its plain version on
-    each path's own [1024, 2048] demod input;
+    each path's own [1024, 2048] demod input (bit-equal, asserted), with
+    the exact zeros in it and in the first block from an empty history;
 22. timing of both paths (events, host clock, idle share), the PLL-NFM
     step's stages by the port's StageTimer, and the kernel in both modes
     with its plain version and bound;
@@ -232,8 +249,9 @@ Phases, each fatal on failure:
     dependent chain read from the kernel's SASS.
 
 Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
-20-23 from another (SEED + 3), phases 24-28 from another (SEED + 4), phase
-29 from another (SEED + 5) and its edges from another (SEED + 6).
+20-23 from another (SEED + 3) and phase 20's edges from another (SEED +
+7), phases 24-28 from another (SEED + 4), phase 29 from another (SEED + 5)
+and its edges from another (SEED + 6).
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
@@ -2468,6 +2486,18 @@ PLL_TOL = 1e-4
 # (C, B): C off the kernel's 32-channel block, B = 1, odd B, a tile tail
 PLL_SHAPES = ((37, 1), (37, 777), (33, 2048), (70, 64))
 PLL_SPLIT = (37, 777, 301)       # one call against two, cut at sample 301
+PLL_SRC = "quisk_tpu_torch/csrc/pll_demod.cu"
+PLL_WRAPPERS = {"sync_am": pll.pll_sync_am, "pll_fm": pll.pll_fm}
+# the edges of the kernel's register tile (B one short of it, it, one past
+# it), one channel alone, and one channel past a full grid of its
+# 32-channel blocks
+PLL_EDGE_SHAPES = ((33, pll.TILE - 1), (33, pll.TILE), (33, pll.TILE + 1),
+                   (1, 2048), (1025, 333))
+# the earlier design of the kernel (shared-memory tiles of 64 samples
+# copied by the whole warp, a block barrier pair a tile, cosf and sinf
+# apart, a wrap and clamp that branch) at the paths' [1024, 2048],
+# chip_smoke.py on an H100 80GB HBM3 at 700.00 W
+PLL_EARLIER_MS = {"sync_am": 0.831, "pll_fm": 0.838}
 SYNC_VOICE_DB = 6.0             # sync-AM row 2 against the voice sent
 SNB_DB = 90.0
 POLS_TAPS, POLS_BLOCK, POLS_BLOCKS = 10001, 512, 4
@@ -2495,11 +2525,20 @@ def rows_state(tree, rows: int, dev):
     return tree[:rows].to(dev)
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a and b bit for bit, a NaN matching a NaN in the same place
+    (whatever its payload)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32)))
+
+
 def check_pll(mode: str, x, st, coef, carrier) -> dict:
     """The kernel against its plain version on the same tensors: rows in
     ``carrier`` sample by sample, the others by RMS; the carried states
-    alike.  One launch."""
-    fn = pll.pll_sync_am if mode == "sync_am" else pll.pll_fm
+    alike; then every output and state bit for bit, asserted.  One
+    launch."""
+    fn = PLL_WRAPPERS[mode]
     n0 = fn.launches
     ks, ky = fn(x, st, coef)
     ps, py = pll.pll_demod_plain(mode, x, st, coef)
@@ -2524,8 +2563,9 @@ def check_pll(mode: str, x, st, coef, carrier) -> dict:
     for a, b, c in zip(ks, ps, ("ph", "fr", "dc")):
         d = (a - b).abs()
         assert bool((d[carrier] <= 1e-4 * (1 + b[carrier].abs())).all()), c
-    bits = bool(torch.equal(ky, py)) and all(torch.equal(a, b)
-                                             for a, b in zip(ks, ps))
+    bits = same_bits(ky, py) and all(same_bits(a, b)
+                                     for a, b in zip(ks, ps))
+    assert bits, (mode, tuple(x.shape), "kernel not bit-equal to plain")
     return {"max_abs_err": err, "peak": peak, "bit_equal": bits,
             "carrier_min_db": float(row_db[carrier].min().clamp(max=999.0)),
             "noise_rows_split": slips}
@@ -2568,7 +2608,7 @@ def phase_pll_kernel(report: dict, rng) -> None:
     out = {}
     for mode, op in pll_ops(dev).items():
         coef = op.coef()
-        fn = pll.pll_sync_am if mode == "sync_am" else pll.pll_fm
+        fn = PLL_WRAPPERS[mode]
         res = []
         for Cs, Bs in PLL_SHAPES:
             x, st, car = pll_test_input(rng, Cs, Bs, mode, dev)
@@ -2746,11 +2786,20 @@ def phase_pll_paths(report: dict, rng) -> dict:
                    np.asarray(SYNC_MODE) == int(Mode.EXT))
         t0 = time.perf_counter()
         r = check_pll(label, y, ext_st, chain.demod.ext.coef(), carrier)
+        # exact zeros reach atan2f's divide where x is 0: count them here
+        # and on the first block after an empty history
+        st0 = chain.init_state()
+        _, y0 = chain.front(st0["front"], xd)
+        _, y0 = chain.bp(st0["bp"], y0)
+        r["zero_samples"] = int((y == 0).sum())
+        r["zero_samples_first_block"] = int((y0 == 0).sum())
         print(f"  PLL kernel {label} on the path's input [{C}, "
               f"{y.shape[1]}]: max|kernel-plain| {r['max_abs_err']:.2e} "
               f"(peak {r['peak']:.3f}), carrier rows >= "
               f"{r['carrier_min_db']:.1f} dB, bit-equal {r['bit_equal']}, "
-              f"noise rows split {r['noise_rows_split']} (check "
+              f"noise rows split {r['noise_rows_split']}; exact-zero "
+              f"samples {r['zero_samples']} (from an empty history "
+              f"{r['zero_samples_first_block']}) (check "
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
         kern[label] = {**r, "x": y, "st": ext_st,
                        "coef": chain.demod.ext.coef()}
@@ -2834,7 +2883,7 @@ def phase_timing_pll(report: dict, smi: str, paths: dict) -> dict:
     out["PLL-NFM"]["demod_parts_ms"] = parts
     times = {}
     for mode, k in paths["kern"].items():
-        fn = pll.pll_sync_am if mode == "sync_am" else pll.pll_fm
+        fn = PLL_WRAPPERS[mode]
         x, s, coef = k["x"], k["st"], k["coef"]
         t = {"ms": cuda_ms(lambda: fn(x, s, coef), 20),
              "plain_ms": cuda_ms(lambda: pll.pll_demod_plain(mode, x, s,
@@ -2850,6 +2899,202 @@ def phase_timing_pll(report: dict, smi: str, paths: dict) -> dict:
     report["timing_pll"] = out
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {m: {k: t[k] for k in keys} for m, t in times.items()}
+
+
+def check_pll_bits(mode: str, x, st, coef) -> dict:
+    """The kernel against its plain version on the same tensors: every
+    output and carried state bit for bit (a NaN where the plain version
+    has one), asserted.  One launch."""
+    fn = PLL_WRAPPERS[mode]
+    n0 = fn.launches
+    ks, ky = fn(x, st, coef)
+    ps, py = pll.pll_demod_plain(mode, x, st, coef)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1, (mode, fn.launches, n0)
+    assert same_bits(ky, py), (mode, tuple(x.shape), "audio")
+    for a, b, name in zip(ks, ps, ("ph", "fr", "dc")):
+        assert same_bits(a, b), (mode, tuple(x.shape), name)
+    fin = torch.isfinite(py)
+    err = float((ky - py)[fin].abs().max()) if bool(fin.any()) else 0.0
+    return {"max_abs_err": err, "bit_equal": True,
+            "nan_samples": int((~fin).sum())}
+
+
+def pll_views(x: torch.Tensor) -> dict:
+    """x's samples in rows that are not all 16-byte aligned (the kernel's
+    16-byte copies then give way to one a sample): rows 777 samples into
+    rows of B + 780 (every row 8 bytes off 16 at B = 2048), rows 2 samples
+    into rows of B + 3 (every other row 8 bytes off), and rows of stride
+    B + 1."""
+    B = x.shape[1]
+    pad = torch.nn.functional.pad
+    return {"cut 777": pad(x, (777, 3))[:, 777:777 + B],
+            "cut 2": pad(x, (2, 1))[:, 2:2 + B],
+            "stride B+1": pad(x, (0, 1))[:, :B]}
+
+
+def pll_special_case(rng, mode: str, dev, C_: int = 70, B: int = 777):
+    """pll_test_input's rows with, on the first warp's rows: a NaN sample
+    (row 1, at B//3), exact zeros (row 7), the first 100 samples zero as
+    after an empty history (row 9), constant 1, 1j and -1 from ph = fr = 0
+    (rows 11, 13, 15: vi, vr or both exact zeros sample after sample), an
+    infinite first sample from ph = 0 (row 17: one operand of atan2 NaN),
+    (0, -inf) at sample 5 (row 19), and magnitudes over the whole float32
+    range (row 21: the divide off its fast range); on the second warp's: a
+    state with |ph| ~ 2e5 (row 33: sincosf's large-argument path) and |ph|
+    ~ 1.9e5 with fr far past max_freq (row 35); and a NaN sample on the
+    last, partial warp (row 65)."""
+    x, st, _ = pll_test_input(rng, C_, B, mode, dev)
+    ph, fr = st[0].clone(), st[1].clone()
+    for r in (1, 65):
+        x[r, B // 3] = float("nan")
+    x[7] = 0
+    x[9, :100] = 0
+    for r, v in ((11, 1.0), (13, 1j), (15, -1.0), (17, 1.0)):
+        x[r] = v
+        ph[r] = fr[r] = 0.0
+    x[17, 0] = float("inf")
+    x[19, 5] = complex(0.0, float("-inf"))
+    mag = 10 ** rng.uniform(-44.0, 38.0, (2, B)) * rng.choice([-1.0, 1.0],
+                                                               (2, B))
+    x[21] = torch.as_tensor((mag[0] + 1j * mag[1]).astype(np.complex64))
+    ph[33] = 2.0e5 + float(rng.uniform(0.0, 1.0))
+    ph[35], fr[35] = -1.9e5, 3.0e6
+    return x, (ph, fr) + tuple(st[2:])
+
+
+def pll_atan2_case(rng, C_: int, B: int, dev):
+    """PLL-FM arguments under which the audio is err = atan2(vi, vr) itself
+    (alpha 1, beta 0, max_freq 0, gain 1, from ph = fr = 0): rows whose
+    real and imaginary parts are drawn apart over the whole float32 range
+    (1e-44 .. 1e38, denormals among them), rows nearly real and rows
+    nearly imaginary (the other part 1e-45 .. 0.1 of it: the loop's ph
+    then stays near 0 and vi / vr spans every ratio down to a denormal
+    quotient), so the kernel's atan2 is held to torch's, its divide on and
+    off its fast range."""
+    kind = np.arange(C_) % 3
+    big = 10 ** rng.uniform(-44.0, 38.0, (C_, B))
+    tiny = 10 ** rng.uniform(-45.0, -1.0, (C_, B))
+    unit = 1.0 + np.abs(rng.standard_normal((C_, B)))
+    re = np.where(kind[:, None] == 0, big, np.where(kind[:, None] == 1, unit,
+                                                     tiny * unit))
+    im = np.where(kind[:, None] == 0, 10 ** rng.uniform(-44.0, 38.0, (C_, B)),
+                  np.where(kind[:, None] == 1, tiny * unit, unit))
+    sign = rng.choice([-1.0, 1.0], (2, C_, B))
+    x = (sign[0] * re + 1j * sign[1] * im).astype(np.complex64)
+    st = tuple(torch.zeros(C_, dtype=torch.float32, device=dev)
+               for _ in range(2))
+    coef = torch.tensor([1.0, 0.0, 0.0, 1.0], dtype=torch.float32,
+                        device=dev)
+    return torch.as_tensor(x, device=dev), st, coef
+
+
+def pll_trig_case(rng, C_: int, B: int, dev):
+    """Sync-AM arguments under which the audio is cos(ph) (rows of x = 1)
+    or -sin(ph) (x = -1j), ph stepping by its row's fr (alpha = beta = 0,
+    max_freq pi, dc_pole 1, dc 0): the first half of the rows from |ph| <
+    pi, the second from |ph| in 1e5 .. 1e7 (sincosf's large-argument
+    path), so the kernel's sincosf is held to torch's cos and sin at C_*B
+    angles."""
+    x = torch.ones((C_, B), dtype=torch.complex64, device=dev)
+    x[1::2] = -1j
+    ph = rng.uniform(-np.pi, np.pi, C_)
+    half = C_ // 2
+    ph[half:] = (rng.choice([-1.0, 1.0], C_ - half)
+                 * 10 ** rng.uniform(5.0, 7.0, C_ - half))
+    st = tuple(torch.as_tensor(v.astype(np.float32), device=dev)
+               for v in (ph, rng.uniform(-np.pi, np.pi, C_), np.zeros(C_)))
+    coef = torch.tensor([0.0, 0.0, pll.PI32, 1.0], dtype=torch.float32,
+                        device=dev)
+    return x, st, coef
+
+
+def sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def pll_edges(report: dict, smi: str) -> None:
+    """The PLL kernel's own edges, from an RNG stream of their own (SEED +
+    7): the tile's edges, C = 1 and one channel past a full grid
+    (PLL_EDGE_SHAPES), rows not 16-byte aligned (pll_views), the special
+    rows of pll_special_case (the NaN row's carried ph and fr NaN in the
+    plain version, and so in the kernel), the kernel's sine and cosine
+    against torch's cos and sin (pll_trig_case) and its atan2 against
+    torch's (pll_atan2_case), and [1024, 2048] of exact zeros, each
+    bit-equal as
+    check_pll_bits holds it; then each mode's time at C = 1, at C = 32 on
+    32 distinct rows and on 32 copies of one row, and on the zeros, beside
+    its time on the path's [1024, 2048] (phase 22), the earlier design's,
+    the byte bound and the estimates of its tile loop's dependent chain and
+    in-order issue from the kernel's SASS."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 7)
+    mhz = sm_clock_mhz()
+    from probe_pll import sass_functions
+    cycles = pll_tile_estimates(
+        sass_functions(_kernels._target("pll_demod"))[1])
+    timing = report["timing_pll"]["kernel"]
+    print(f"the PLL kernel's edges [{smi}]:", flush=True)
+    sweeps = {"trig sweep": check_pll_bits(
+        "sync_am", *pll_trig_case(rng, C, AUDIO_BLOCK, dev)),
+              "atan2 sweep": check_pll_bits(
+        "pll_fm", *pll_atan2_case(rng, C, AUDIO_BLOCK, dev))}
+    print(f"  sincosf against torch's cos and sin at {C * AUDIO_BLOCK} "
+          f"angles (half of them past 1e5), and atan2 against torch's at "
+          f"{C * AUDIO_BLOCK} operand pairs over the whole float32 range: "
+          f"bit-equal", flush=True)
+    for mode, fn in PLL_WRAPPERS.items():
+        coef = pll_ops(dev)[mode].coef()
+        res = dict(sweeps)
+        for Cs, Bs in PLL_EDGE_SHAPES:
+            x, st, _ = pll_test_input(rng, Cs, Bs, mode, dev)
+            res[f"({Cs}, {Bs})"] = check_pll_bits(mode, x, st, coef)
+        x, st, _ = pll_test_input(rng, 33, AUDIO_BLOCK, mode, dev)
+        for label, xv in pll_views(x).items():
+            res[label] = check_pll_bits(mode, xv, st, coef)
+        x, st = pll_special_case(rng, mode, dev)
+        res["special rows"] = check_pll_bits(mode, x, st, coef)
+        ps, _ = pll.pll_demod_plain(mode, x, st, coef)
+        assert bool(torch.isnan(ps[0][1]) & torch.isnan(ps[1][1])), mode
+        x, st, _ = pll_test_input(rng, C, AUDIO_BLOCK, mode, dev)
+        zeros = (torch.zeros_like(x), st)
+        res["zeros"] = check_pll_bits(mode, *zeros, coef)
+        print(f"  pll_demod {mode} at (C, B) "
+              + ", ".join(k for k in res if k.startswith("("))
+              + ", on rows cut 777 and 2 samples in and of stride B+1, on "
+              f"the special rows (NaN, |ph| ~ 2e5, zeros, constants, "
+              f"infinities, every magnitude) and "
+              f"on [{C}, {AUDIO_BLOCK}] of zeros: every output and state "
+              f"bit-equal (the NaN row's ph and fr NaN in both), max "
+              f"|kernel - plain| "
+              f"{max(r['max_abs_err'] for r in res.values()):.3e}",
+              flush=True)
+        x32, s32, _ = pll_test_input(rng, 32, AUDIO_BLOCK, mode, dev)
+        runs = {"C=1": pll_test_input(rng, 1, AUDIO_BLOCK, mode, dev)[:2],
+                "C=32 distinct": (x32, s32),
+                "C=32 identical": (x32[:1].repeat(32, 1),
+                                   tuple(s[:1].repeat(32) for s in s32)),
+                f"zeros [{C}, {AUDIO_BLOCK}]": zeros}
+        ms = {label: cuda_ms(lambda: fn(xr, sr, coef), 20)
+              for label, (xr, sr) in runs.items()}
+        keys = ("chain_cycles_a_sample", "in_order_cycles_a_sample")
+        est = {k: cycles[mode][k] * AUDIO_BLOCK / (mhz * 1e3) for k in keys}
+        o = timing[mode]
+        print(f"  pll_demod {mode}: [{C}, {AUDIO_BLOCK}] {o['ms']:.4f} ms "
+              f"(earlier design {PLL_EARLIER_MS[mode]:.4f}), byte bound "
+              f"{o['bytes_ms']:.4f} ms, SASS chain "
+              f"{est['chain_cycles_a_sample']:.4f} ms "
+              f"({cycles[mode]['chain_cycles_a_sample']:.2f} cycles a "
+              f"sample; in-order {est['in_order_cycles_a_sample']:.4f} ms, "
+              f"{cycles[mode]['in_order_cycles_a_sample']:.2f} cycles, at "
+              f"{mhz:.0f} MHz; branches a sample on the hot path "
+              f"{cycles[mode]['branches_a_sample']}); " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+        o.update(edges=res, ms_by_rows=ms, earlier_ms=PLL_EARLIER_MS[mode],
+                 sass_cycles=cycles[mode], sass_ms=est, sm_clock_mhz=mhz)
 
 
 def phase_slice5_ops(report: dict, smi: str, rng) -> None:
@@ -3592,14 +3837,20 @@ def agc_views(args: tuple) -> dict:
 AGC_SLOW = ("CALL", "LDL", "STL", "LDG.", "LDGSTS")
 
 
-def agc_scan_role(body: list) -> list:
-    """The scan warp's part of a tile loop's SASS body: BRA.DIV (taken only
-    by a diverged warp) marked as the conditional branch it is, and where
-    the helper warp's part is laid out first (it ends in a jump over the
-    scan's wait for its copies, DEPBAR), that part dropped."""
-    from probe_pll import _target
-    body = [(a, op, o, o.split(",")[0]) if op.startswith("BRA.DIV")
+def mark_bra_div(body: list) -> list:
+    """A SASS body with BRA.DIV (taken only by a diverged warp) marked as
+    the conditional branch it is."""
+    return [(a, op, o, o.split(",")[0]) if op.startswith("BRA.DIV")
             else (a, op, o, g) for a, op, o, g in body]
+
+
+def agc_scan_role(body: list) -> list:
+    """The scan warp's part of a tile loop's SASS body: BRA.DIV marked
+    (mark_bra_div), and where the helper warp's part is laid out first (it
+    ends in a jump over the scan's wait for its copies, DEPBAR), that part
+    dropped."""
+    from probe_pll import _target
+    body = mark_bra_div(body)
     dep = next(a for a, op, _, _ in body if op.startswith("DEPBAR"))
     jumps = [a for a, op, o, g in body
              if op == "BRA" and not g and a < dep < (_target(o) or 0)]
@@ -3611,31 +3862,49 @@ def agc_scan_role(body: list) -> list:
     return [i for i in body if not start < i[0] <= jump]
 
 
-def agc_tile_estimates(funcs: dict) -> dict:
-    """Each mode's tile loop in the kernel's SASS (``funcs`` as
-    probe_pll.sass_functions returns it): the shortest loop that copies the
-    next tile in (LDGSTS) and waits for it (DEPBAR), agc_scan.TILE samples
-    a pass; per sample, the scan warp's (agc_scan_role) longest dependent
-    chain and in-order issue by probe_pll's latency table (TxALC's with
-    its clip / block-complete ramps, which it takes only when a lane of the
-    warp needs one), and the branches and convergence barriers on its hot
-    path."""
+def tile_estimates(funcs: dict, modes: dict, tile: int, role) -> dict:
+    """Each mode's tile loop in a kernel's SASS (``funcs`` as
+    probe_pll.sass_functions returns it; ``modes`` maps a part of the
+    function's name, the template's instantiation, to the mode): the
+    shortest loop that copies the next tile in (LDGSTS) and waits for it
+    (DEPBAR), ``tile`` samples a pass; per sample, the scanning warp's part
+    of it (``role``) by its longest dependent chain and in-order issue by
+    probe_pll's latency table, and the branches and convergence barriers
+    on its hot path."""
     from probe_pll import chain_estimate, hot_path, sample_loop
     out = {}
     for name, ins in funcs.items():
-        # the template's instantiations, agc_scan_kernel<0|1|2>
-        mode = next(m for k, m in (("ILi0E", "tx_alc"), ("ILi1E", "wcp"),
-                                   ("ILi2E", "hang")) if k in name)
+        mode = next(m for k, m in modes.items() if k in name)
         body = sample_loop(ins, need=("LDGSTS", "DEPBAR"))
         assert body is not None, (mode, "no tile loop in the SASS")
-        body = agc_scan_role(body)
-        res = chain_estimate(body, agc_scan.TILE, AGC_SLOW)
+        body = role(body)
+        res = chain_estimate(body, tile, AGC_SLOW)
         hot = hot_path(body, AGC_SLOW)
         res["branches_a_sample"] = {
-            op: sum(1 for i in hot if i[1].startswith(op)) / agc_scan.TILE
+            op: sum(1 for i in hot if i[1].startswith(op)) / tile
             for op in ("BRA", "BSSY", "BSYNC")}
         out[mode] = res
     return out
+
+
+def agc_tile_estimates(funcs: dict) -> dict:
+    """tile_estimates of csrc/agc_scan.cu's modes (agc_scan_kernel<0|1|2>),
+    agc_scan.TILE samples a pass, the scan warp's part (agc_scan_role);
+    TxALC's with its clip / block-complete ramps, which it takes only when
+    a lane of the warp needs one."""
+    return tile_estimates(funcs, {"ILi0E": "tx_alc", "ILi1E": "wcp",
+                                  "ILi2E": "hang"}, agc_scan.TILE,
+                          agc_scan_role)
+
+
+def pll_tile_estimates(funcs: dict) -> dict:
+    """tile_estimates of csrc/pll_demod.cu's modes (pll_demod_kernel<0|1>),
+    pll.TILE samples a pass; one warp, so its role is its whole loop but
+    BRA.DIV, which only a diverged warp takes; the hot path is the tile of
+    unrolled steps (the one-sample-at-a-time loop of a partial tile or a
+    large |ph| is cut with the other rare paths)."""
+    return tile_estimates(funcs, {"ILi0E": "sync_am", "ILi1E": "pll_fm"},
+                          pll.TILE, mark_bra_div)
 
 
 def agc_bound(mode: str, rows: int, B: int) -> dict:
@@ -3721,10 +3990,7 @@ def agc_edges(out: dict, smi: str) -> None:
     earlier design's, its byte bound and its SASS chain estimate."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED + 6)
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0])
+    mhz = sm_clock_mhz()
     from probe_pll import sass_functions
     cycles = agc_tile_estimates(
         sass_functions(_kernels._target("agc_scan"))[1])
@@ -3849,14 +4115,15 @@ def main(argv=None) -> int:
     phase_pll_kernel(report, rng_s5)
     paths = phase_pll_paths(report, rng_s5)
     pll_times = phase_timing_pll(report, smi, paths)
-    pll_src = "quisk_tpu_torch/csrc/pll_demod.cu"
+    # the PLL kernel's edges, from a stream of their own
+    pll_edges(report, smi)
     kernels += [
-        {"name": "pll_demod_sync_am", "route": "cuda", "source": pll_src,
+        {"name": "pll_demod_sync_am", "route": "cuda", "source": PLL_SRC,
          "replaces": "quisk_tpu/ops/nr.py:368", "path": "sync-AM flagship",
          "launches": paths["launches"]["sync_am"],
          "max_abs_err": paths["kern"]["sync_am"]["max_abs_err"],
          **pll_times["sync_am"]},
-        {"name": "pll_demod_pll_fm", "route": "cuda", "source": pll_src,
+        {"name": "pll_demod_pll_fm", "route": "cuda", "source": PLL_SRC,
          "replaces": "quisk_tpu/ops/demod.py:172", "path": "PLL-NFM",
          "launches": paths["launches"]["pll_fm"],
          "max_abs_err": paths["kern"]["pll_fm"]["max_abs_err"],

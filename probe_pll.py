@@ -1,28 +1,48 @@
 #!/usr/bin/env python3
 """The PLL kernel (quisk_tpu_torch/csrc/pll_demod.cu) alone on one card.
 
-1. builds it (nvcc's -Xptxas=-v lines: registers, spills);
-2. holds both modes to their plain version at a small shape (bits and the
-   largest difference), on ``chip_smoke.py``'s test input (noise, a
-   carrier on the even rows);
-3. reads the kernel's SASS (cuobjdump -sass), finds each mode's sample
-   loop (the innermost backward branch), counts its instructions and
-   estimates one sample's time on its hot path (the rare paths cut, see
-   ``hot_path``) two ways by an assumed latency table (LATENCY below: 4
-   cycles for the fp32 and integer ALU, 18 for the MUFU unit, 6 for
-   conversions, 24 for a shared-memory load, 8 otherwise): the longest
-   dependent chain, and in-order issue by one warp; at the card's SM clock
-   that is a least time per sample however many channels run;
-4. times both modes at C=1024 over B = 512 .. 8192 (the slope is the
-   measured time a sample), and at C=32 (one block, one warp);
-5. prints one JSON object with all of it (and ``--out FILE`` writes it).
+1. builds it (nvcc's -Xptxas=-v lines: registers, spills), and with
+   ``--ref SRC`` (another source of the kernel, e.g. an earlier commit's;
+   may be given more than once) each such source beside it, one nvcc each,
+   all started together;
+2. holds both modes of each build to the plain version, every output and
+   carried state bit for bit (``chip_smoke.check_pll_bits``), at a small
+   shape on ``chip_smoke.py``'s test input (noise, a carrier on the even
+   rows), on its special rows (a NaN sample, |ph| ~ 2e5, exact zeros,
+   constants, infinities, every magnitude; ``chip_smoke.pll_special_case``)
+   and on the sweeps that hold the kernel's sine and cosine (sync AM,
+   ``chip_smoke.pll_trig_case``) and its atan2 (PLL FM,
+   ``chip_smoke.pll_atan2_case``) to torch's;
+3. reads each build's SASS (cuobjdump -sass) and estimates one sample's
+   time on its hot path two ways by an assumed latency table (LATENCY
+   below: 4 cycles for the fp32 and integer ALU, 18 for the MUFU unit, 6
+   for conversions, 24 for a shared-memory load, 8 otherwise): the
+   longest dependent chain, and in-order issue by one warp; at the card's
+   SM clock that is a least time per sample however many channels run.
+   A build with a tile loop (the copies of the next tile in, LDGSTS, and
+   the wait for them, DEPBAR) is read by ``chip_smoke.pll_tile_estimates``
+   (with the branches left on its hot path); the earlier design, by its
+   sample loop (``loop_chain``: the innermost loop with a shared load and
+   store, the rare paths cut, see ``hot_path``);
+4. times both modes of each build at C=1024 over B = 512 .. 8192 (the
+   slope is the measured time a sample), on [1024, 2048] of exact zeros,
+   at C=1, and at C=32 (one block, one warp) on 32 distinct rows and on
+   32 copies of one row, the builds in turns (checkout, refs, refs in
+   reverse, checkout);
+5. prints one JSON object with all of it (``--out FILE`` also writes it,
+   ``--sass FILE`` the checkout's SASS and each ref's beside it).
 
 Run from the repository root on a card:  python3 probe_pll.py
+  git show <commit>:quisk_tpu_torch/csrc/pll_demod.cu \
+      > quisk_tpu_torch/_build/old_pll_demod.cu
+  python3 probe_pll.py --ref quisk_tpu_torch/_build/old_pll_demod.cu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import re
 import shutil
@@ -160,9 +180,92 @@ def loop_chain(ins: list) -> dict:
                                     if i[1].startswith("STS")))
 
 
+def build(refs: list[Path]) -> tuple[list[str], dict, dict]:
+    """The checkout's kernel and every source in ``refs`` compiled
+    together, one nvcc each: (the checkout's ptxas lines, {ref's stem:
+    bound launcher}, {ref's stem: its ptxas lines})."""
+    out_dir = _kernels.BUILD_DIR / "ref"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for ref in refs:
+        lib = out_dir / f"lib{ref.stem}.so"
+        procs[ref.stem] = (lib, subprocess.Popen(
+            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(lib),
+             str(ref)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    built = _kernels.build(["pll_demod"])
+    mine = ptxas_lines(built.get("pll_demod", {}).get("log", ""))
+    launchers, logs = {}, {}
+    for stem, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"build of {stem} failed:\n{log}")
+        launchers[stem] = pll.bind(ctypes.CDLL(str(lib)))
+        logs[stem] = ptxas_lines(log)
+    return mine, launchers, logs
+
+
+def ptxas_lines(log: str) -> list[str]:
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+@contextlib.contextmanager
+def kernel_of(launcher):
+    """Route the wrappers to ``launcher`` (None: the checkout's own)."""
+    saved = pll._launcher
+    if launcher is not None:
+        pll._launcher = lambda: launcher
+    try:
+        yield
+    finally:
+        pll._launcher = saved
+
+
+def timed(fn, iters: int = 10) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def sass_estimates(so: Path, sass_out: Path | None) -> dict:
+    """Each mode's SASS estimates: of the sample loop (loop_chain) where
+    the build has one (the earlier design), else of the tile loop
+    (chip_smoke.pll_tile_estimates)."""
+    import chip_smoke as cs
+    text, funcs = sass_functions(so)
+    if sass_out is not None:
+        sass_out.write_text(text)
+    out = {("sync_am" if "ILi0E" in name else "pll_fm"):
+           {**loop_chain(ins), "loop": "sample"}
+           for name, ins in funcs.items()}
+    if not all(v["found"] for v in out.values()):
+        out = {m: {**v, "loop": "tile"}
+               for m, v in cs.pll_tile_estimates(funcs).items()}
+    for name, ins in funcs.items():
+        mode = "sync_am" if "ILi0E" in name else "pll_fm"
+        out[mode]["function"] = name
+        out[mode]["total_instructions"] = len(ins)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON to this file")
+    ap.add_argument("--sass", type=Path,
+                    help="also write the kernel's SASS here (and each "
+                         "ref's beside it, its name suffixed)")
+    ap.add_argument("--ref", type=Path, action="append", default=[],
+                    help="another source of the kernel to time beside it "
+                         "(may be given more than once)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_pll: no CUDA device", file=sys.stderr)
@@ -173,70 +276,87 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                            "--format=csv,noheader,nounits"],
-                           capture_output=True, text=True,
-                           check=True).stdout.strip()
-    out = {"card": smi, "sm_clock_max_mhz": float(clock)}
-    built = _kernels.build(["pll_demod"])
-    log = built.get("pll_demod", {}).get("log", "")
-    out["ptxas"] = [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-    print(f"card: {smi}; build: " + " | ".join(out["ptxas"]), flush=True)
+    clock = cs.sm_clock_mhz()
+    out = {"card": smi, "sm_clock_max_mhz": clock}
+    out["ptxas"], refs, out["ref_ptxas"] = build(args.ref)
+    print(f"card: {smi}; build: " + " | ".join(out["ptxas"]) + "".join(
+        f"; {k}: {' | '.join(v)}" for k, v in out["ref_ptxas"].items()),
+        flush=True)
 
+    kernels = {"checkout": None, **refs}
     ops = cs.pll_ops(dev)
     rng = np.random.default_rng(5)
-    for mode, fn in (("sync_am", pll.pll_sync_am), ("pll_fm", pll.pll_fm)):
+    # bits: a small shape, the special rows (NaN, |ph| ~ 2e5, zeros,
+    # constants) and the sincosf sweep, each kernel against the plain
+    # version
+    sweeps = {"sync_am": ("trig sweep", cs.pll_trig_case(rng, 1024, 256,
+                                                         dev)),
+              "pll_fm": ("atan2 sweep", cs.pll_atan2_case(rng, 1024, 256,
+                                                          dev))}
+    for mode in cs.PLL_WRAPPERS:
         coef = ops[mode].coef()
-        x, st, _ = cs.pll_test_input(rng, 37, 777, mode, dev)
-        n0 = fn.launches
-        (ks, ky) = fn(x, st, coef)
-        (ps, py) = pll.pll_demod_plain(mode, x, st, coef)
-        torch.cuda.synchronize()
-        err = float((ky - py).abs().max())
-        out[f"{mode}_check"] = {
-            "launches": fn.launches - n0, "max_abs_err": err,
-            "peak": float(py.abs().max()),
-            "bit_equal": bool(torch.equal(ky, py)) and all(
-                torch.equal(a, b) for a, b in zip(ks, ps))}
-        print(f"{mode} at C=37, B=777: {out[f'{mode}_check']}", flush=True)
+        cases = {"C=37 B=777": cs.pll_test_input(rng, 37, 777, mode,
+                                                 dev)[:2],
+                 "special rows": cs.pll_special_case(rng, mode, dev)}
+        for who, launcher in kernels.items():
+            res = {}
+            with kernel_of(launcher):
+                for label, (x, st) in cases.items():
+                    try:
+                        res[label] = cs.check_pll_bits(mode, x, st, coef)
+                    except AssertionError as e:
+                        res[label] = {"bit_equal": False, "where": str(e)}
+                label, case = sweeps[mode]
+                try:
+                    res[label] = cs.check_pll_bits(mode, *case)
+                except AssertionError as e:
+                    res[label] = {"bit_equal": False, "where": str(e)}
+            key = f"{mode}_check" + ("" if who == "checkout" else f"_{who}")
+            out[key] = res
+            print(f"{mode} ({who}): {res}", flush=True)
 
-    so = _kernels._target("pll_demod")
-    text, funcs = sass_functions(so)
-    Path("chiprun_out").mkdir(exist_ok=True)
-    Path("chiprun_out/pll_demod.sass").write_text(text)
-    for name, ins in funcs.items():
-        mode = "sync_am" if "ILi0E" in name else "pll_fm"
-        res = loop_chain(ins)
-        res["function"] = name
-        res["total_instructions"] = len(ins)
-        out[f"{mode}_sass"] = res
-        print(f"{mode} SASS: {res}", flush=True)
+    sass = {"checkout": _kernels._target("pll_demod"),
+            **{k: _kernels.BUILD_DIR / "ref" / f"lib{k}.so" for k in refs}}
+    for who, so in sass.items():
+        dst = None
+        if args.sass is not None:
+            dst = (args.sass if who == "checkout" else
+                   args.sass.with_name(f"{args.sass.stem}_{who}.sass"))
+        for mode, res in sass_estimates(so, dst).items():
+            key = f"{mode}_sass" + ("" if who == "checkout" else f"_{who}")
+            out[key] = res
+            print(f"{mode} SASS ({who}): {res}", flush=True)
 
-    for mode, fn in (("sync_am", pll.pll_sync_am), ("pll_fm", pll.pll_fm)):
+    order = (["checkout", *refs, *reversed(list(refs)), "checkout"] if refs
+             else ["checkout"])
+    for mode, fn in cs.PLL_WRAPPERS.items():
         coef = ops[mode].coef()
-        times = {}
-        for C, B in ((1024, 512), (1024, 2048), (1024, 8192), (32, 2048)):
+        times = {who: {} for who in kernels}
+        for C, B in ((1024, 512), (1024, 2048), (1024, 8192), (32, 2048),
+                     (1, 2048)):
             x, st, _ = cs.pll_test_input(rng, C, B, mode, dev)
-            for _ in range(2):
-                fn(x, st, coef)
-            torch.cuda.synchronize()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(10):
-                fn(x, st, coef)
-            b.record()
-            b.synchronize()
-            times[f"{C}x{B}"] = a.elapsed_time(b) / 10
-        slope_ns = ((times["1024x8192"] - times["1024x512"])
-                    / (8192 - 512) * 1e6)
-        out[f"{mode}_ms"] = times
-        out[f"{mode}_ns_per_sample"] = slope_ns
-        print(f"{mode} times (ms) {times}; {slope_ns:.2f} ns a sample "
-              f"(slope over B at C=1024) = "
-              f"{slope_ns * float(clock) / 1e3:.0f} cycles at "
-              f"{clock} MHz", flush=True)
+            cases = {f"{C}x{B}": (x, st)}
+            if C == 32:
+                cases["32x2048 same"] = (x[:1].repeat(32, 1),
+                                         tuple(s[:1].repeat(32) for s in st))
+            if B == 2048 and C == 1024:
+                cases["1024x2048 zeros"] = (torch.zeros_like(x), st)
+            for label, (xc, sc) in cases.items():
+                ms = {who: [] for who in kernels}
+                for who in order:
+                    with kernel_of(kernels[who]):
+                        ms[who].append(timed(lambda: fn(xc, sc, coef)))
+                for who in kernels:
+                    times[who][label] = sum(ms[who]) / len(ms[who])
+        for who, t in times.items():
+            slope_ns = (t["1024x8192"] - t["1024x512"]) / (8192 - 512) * 1e6
+            key = "" if who == "checkout" else f"_{who}"
+            out[f"{mode}_ms{key}"] = t
+            out[f"{mode}_ns_per_sample{key}"] = slope_ns
+            print(f"{mode} ({who}) times (ms) {t}; {slope_ns:.2f} ns a "
+                  f"sample (slope over B at C=1024) = "
+                  f"{slope_ns * clock / 1e3:.0f} cycles at {clock:.0f} MHz",
+                  flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(out, indent=1))
     print(json.dumps(out))

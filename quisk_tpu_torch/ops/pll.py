@@ -39,14 +39,24 @@ PI32 = float(np.float32(np.pi))
 TWO_PI32 = float(np.float32(2 * np.pi))
 
 
-@functools.cache
-def _launcher():
-    fn = _kernels.load("pll_demod").pll_demod
+#: samples a lane of the kernel holds in registers (its kTile): the edges of
+#: its tiles are shapes worth checking
+TILE = 16
+
+
+def bind(lib: ctypes.CDLL):
+    """The launcher ``pll_demod`` of a loaded build, its C types set."""
+    fn = lib.pll_demod
     ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
     fn.argtypes = ([ctypes.c_int, ptr, i64] + [ptr] * 8
                    + [ctypes.c_int, i64, ptr])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _launcher():
+    return bind(_kernels.load("pll_demod"))
 
 
 def _check(mode: str, x, state, coef) -> tuple[int, int]:

@@ -385,3 +385,137 @@ def test_chain_with_pll_ext_matches_jax(name):
     assert np.all(np.abs(db) < 0.1), db
     ext = np.asarray(modes) == int(Mode.EXT)
     assert (ext & strict).sum() >= C // 4 and silent.sum() <= C // 2
+
+
+# ------------------------------------------- the loop's edges against JAX's
+# The inputs that the PLL kernel's own edge checks use on the card (its
+# plain version here, the JAX op's loop beside it): a NaN sample, a start
+# state with |ph| ~ 2e5 (sincosf's large-argument path on the card), rows
+# of exact zeros and of constants (atan2 on a +-0 operand), and block
+# lengths at the edges of the kernel's 16-sample register tile.
+EDGE_STATE_TOL = 1e-4            # relative, as chip_smoke.check_pll holds it
+# At |ph| ~ 2e5 a float32 phase is a grid of 2^-6 rad, and the two packages'
+# cos / sin / atan2 (each within an ulp, differing by one on a few percent
+# of samples, as at small |ph|) then move it by a whole grid step now and
+# then: the rows from such a state are held to this floor (96.6 dB the
+# least measured over these rows), the others to PLL_DB.
+LARGE_PH_DB = 80.0
+LARGE_PH_ROWS = (1, 6)
+
+
+def _edge_case(mode: str, B: int, seed: int):
+    """[8, B] rows: 0 and 1 a carrier in noise (1 from |ph| ~ 2e5), 2 a
+    NaN sample at B // 3, 3 exact zeros, 4 constant 1 and 5 constant 1j
+    from ph = fr = 0, 6 noise from |ph| ~ 1.9e5 with fr far past max_freq,
+    7 the first half zero; states as numpy float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(B) / FS
+    x = 0.1 * (rng.standard_normal((8, B)) + 1j * rng.standard_normal((8, B)))
+    x[:2] += np.exp(2j * np.pi * 40.0 * t)
+    x[2, B // 3] = np.nan
+    x[3] = 0.0
+    x[4], x[5] = 1.0, 1j
+    x[7, :B // 2] = 0.0
+    ph = rng.uniform(-0.5, 0.5, 8)
+    fr = np.zeros(8)
+    ph[1], ph[6], fr[6] = 2.0e5 + rng.uniform(), -1.9e5, 3.0e6
+    ph[4] = ph[5] = 0.0
+    dc = np.full(8, 0.9)
+    st = (ph, fr, dc) if mode == "sync_am" else (ph, fr)
+    return x.astype(np.complex64), tuple(s.astype(np.float32) for s in st)
+
+
+def _edge_ops(mode: str):
+    if mode == "sync_am":
+        return (JSyncAMDemod.create(FS, bw_hz=150.0),
+                SyncAMDemod.create(FS, bw_hz=150.0, device="cpu"))
+    return (JPLLFMDemod.create(FS, deviation_hz=5000.0),
+            PLLFMDemod.create(FS, deviation_hz=5000.0, device="cpu"))
+
+
+def _edge_run(mode: str, x: np.ndarray, st: tuple):
+    """The JAX op and the port's (its loop the kernel's plain version on
+    the CPU) from the same state: (JAX state, JAX audio, port state, port
+    audio), the states' loop part only, as numpy."""
+    j, op = _edge_ops(mode)
+    if mode == "sync_am":
+        jst, jy = jax.jit(j.__call__)(st, x)
+        pst, py = op(tuple(torch.as_tensor(s) for s in st), torch.as_tensor(x))
+    else:
+        jst, jy = jax.jit(j.__call__)(st + tuple(j.init_state(len(x))[2:]), x)
+        rest = op.init_state(len(x))[2:]
+        pst, py = op(tuple(torch.as_tensor(s) for s in st) + tuple(rest),
+                     torch.as_tensor(x))
+    n = len(st)
+    return ([np.asarray(s) for s in jst[:n]], np.asarray(jy),
+            [s.numpy() for s in pst[:n]], py.numpy())
+
+
+def _assert_edge_match(jst, jy, pst, py):
+    """NaN in the same places; finite audio >= PLL_DB a row (LARGE_PH_DB on
+    LARGE_PH_ROWS; or both rows silent, exactly); finite states within
+    EDGE_STATE_TOL, relative."""
+    assert np.array_equal(np.isnan(jy), np.isnan(py))
+    fin = np.isfinite(jy)
+    assert np.array_equal(fin, np.isfinite(py))
+    for r in range(jy.shape[0]):
+        a = jy[r][fin[r]].astype(np.float64)
+        b = py[r][fin[r]].astype(np.float64)
+        if not np.any(a):
+            assert not np.any(b), r
+            continue
+        s = snr_rows(a[None], b[None])[0]
+        assert s >= (LARGE_PH_DB if r in LARGE_PH_ROWS else PLL_DB), (r, s)
+    for a, b in zip(jst, pst):
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        ok = ~np.isnan(a)
+        assert np.all(np.abs(a[ok] - b[ok])
+                      <= EDGE_STATE_TOL * (1 + np.abs(a[ok]))), (a, b)
+
+
+@pytest.mark.parametrize("mode", ["sync_am", "pll_fm"])
+def test_nan_sample_carries_nan_as_jax(mode):
+    """After a NaN sample the loop's ph and fr are NaN in both packages
+    (torch.clamp and jnp.clip keep a NaN; fminf / fmaxf would carry
+    -max_freq), and the other rows are untouched."""
+    x, st = _edge_case(mode, 300, 61)
+    jst, jy, pst, py = _edge_run(mode, x, st)
+    for s in (jst, pst):
+        assert np.isnan(s[0][2]) and np.isnan(s[1][2])
+        assert np.all(np.isfinite(s[1][np.arange(8) != 2]))
+    assert np.all(np.isnan(py[2, 300 // 3:]))
+    assert np.all(np.isfinite(py[2, :300 // 3]))
+    _assert_edge_match(jst, jy, pst, py)
+
+
+@pytest.mark.parametrize("mode", ["sync_am", "pll_fm"])
+def test_large_phase_state_matches_jax(mode):
+    """A start state with |ph| ~ 2e5: the wrap takes off 2 pi a sample, so
+    the whole block runs at |ph| > 1.7e5."""
+    x, st = _edge_case(mode, 512, 62)
+    jst, jy, pst, py = _edge_run(mode, x, st)
+    assert np.all(np.abs(pst[0][[1, 6]]) > 1.0e5)
+    _assert_edge_match(jst, jy, pst, py)
+
+
+@pytest.mark.parametrize("mode", ["sync_am", "pll_fm"])
+def test_zero_and_constant_rows_match_jax(mode):
+    """Rows of exact zeros (atan2 of two zeros), half a row of zeros (the
+    first samples after an empty history) and constants from ph = 0 (one
+    operand of atan2 exactly zero, sample after sample)."""
+    x, st = _edge_case(mode, 256, 63)
+    jst, jy, pst, py = _edge_run(mode, x, st)
+    # constant 1 from ph = fr = 0: vi is exactly +0 at every sample, so the
+    # loop never moves; constant 1j: atan2(1, +0) = pi/2 on the first
+    assert pst[0][4] == 0.0 and pst[1][4] == 0.0
+    _assert_edge_match(jst, jy, pst, py)
+
+
+@pytest.mark.parametrize("B", [15, 16, 17])
+@pytest.mark.parametrize("mode", ["sync_am", "pll_fm"])
+def test_tile_edge_lengths_match_jax(mode, B):
+    """Block lengths one short of the kernel's register tile, the tile and
+    one past it, with every edge row."""
+    assert pll.TILE == 16
+    x, st = _edge_case(mode, B, 64 + B)
+    _assert_edge_match(*_edge_run(mode, x, st))
