@@ -20,13 +20,18 @@ loopback over the front kernel, PureSignal and the spectrum services.
 Then the two PLL demodulators on their hand-written kernel, each through
 the receive chain's EXT slot at 1024 channels, and the remaining DSP ops.
 Then the host edge: the flagship fed from host memory through DeviceFeed,
-the Radio session (a 48 kS/s user's session, 1024 channels at 960 kS/s on
-one capture, and a keyed TX->RX loopback session) and the CLI.  Last, the
+the PFB receiver fed by the ingest plane (a live wideband UDP stream
+through the native pump straight into DeviceFeed's pinned slot) and a
+live HiQSDR Radio, the Radio session (a 48 kS/s user's session, 1024
+channels at 960 kS/s on one capture, and a keyed TX->RX loopback session)
+and the CLI.  Last, the
 AGC / ALC recurrence kernel that the TX chain and the WDSP AGC run on.
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit; build every kernel in
-   quisk_tpu_torch/csrc/ (one nvcc each, started together);
+   quisk_tpu_torch/csrc/ (one nvcc each, started together) and, beside
+   them, the ingest library quisk_tpu_torch/native/ingest.cpp (g++);
+   fails without a C++ compiler;
 2. the fused tune+decimate kernel at a small half-band shape whose tile
    N does not fill (>= 100 dB against the float64 reference; taps too
    long for shared memory must raise), at the ragged edges of its
@@ -197,6 +202,32 @@ Phases, each fatal on failure:
     clock), the pinned H2D copy's ms and GB/s, the share of the copy
     hidden under compute (1 - (prefetch-1 ms - resident ms) / copy ms),
     the staging memcpy of the pageable run, the real-time factor;
+24b. the ingest plane (slice 7b-1), on a capture of its own: pfb_signal's
+    noise and USB / AM / FM carriers from a torch generator seeded SEED +
+    8, times 0.08 (under iq24's full scale), 12 337 wideband packets of
+    8160 samples (3 blocks and a part).  (a) WidebandHardware(n_streams=1,
+    sample_rate=196.608e6).start_pump(block=2^25) (the native pump, its
+    ring two blocks deep) fed from a thread by PacketSender with the
+    port's WidebandStream.build, paced at 48 MS/s (24 on a retry if the
+    pump lost any); each block read straight into DeviceFeed's next
+    pinned slot (push_into -> read_samples(n, out=slot)) and stepped
+    through the 4096-channel PFB receiver (kernel route): the native pump,
+    no sequence error, no ring overrun, every packet parsed, no byte
+    staged, one launch each of kernels #4 and #6 a block, audio and spec
+    bit-equal to the same blocks stepped from card-resident copies of
+    unpack_iq24 of the packets sent, the three signals out of their
+    channels, both kernels within their tolerances of their plain
+    versions on block 2; (b) the same packets on a full ring (four blocks
+    deep), through the pinned route and through read_samples -> numpy ->
+    push (a staging memcpy): bit-equal to (a), host ms a block, the
+    staging a block, the slot's H2D copy and the step by events, the
+    real-time factor; the unpaced native blast into one socket and
+    blast_striped over two (blocks of 16 * 2 * 8160): drained MS/s,
+    losses, sequence errors (reported, not gated); (c) a HiQSDR Radio
+    (48 kS/s, USB) on the card and one on the CPU, each fed the same
+    1442-byte packets over loopback by PacketSender at 4x real time:
+    native pump, no sequence error, audio a block > 90 dB apart from
+    block 2;
 25. a Quisk user's Radio session (RadioConfig(sample_rate=48000,
     mode="USB", tune_hz=10000, agc=True), sim hardware, the tone at 11
     kHz, 12 blocks): the 1 kHz beat; after set_frequency(13000) with the
@@ -250,16 +281,18 @@ Phases, each fatal on failure:
 
 Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
 20-23 from another (SEED + 3) and phase 20's edges from another (SEED +
-7), phases 24-28 from another (SEED + 4), phase 29 from another (SEED + 5)
-and its edges from another (SEED + 6).
+7), phases 24-28 from another (SEED + 4), phase 24b's capture from
+another (SEED + 8), phase 29 from another (SEED + 5) and its edges from
+another (SEED + 6).
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
 name and power limit and one
 JSON object of kernels (one entry per kernel and path shape: the front
 kernel's plain mode has one for the flagship, one for the NFM path and one
-for the flagship fed through DeviceFeed, the PLL kernel and the AGC / ALC
-kernel one for each mode);
+for the flagship fed through DeviceFeed, kernels #4 and #6 one for the PFB
+receiver and one for it fed by the ingest plane, the PLL kernel and the
+AGC / ALC kernel one for each mode);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--out FILE`` also writes every number measured to FILE as JSON.
@@ -275,9 +308,11 @@ import dataclasses
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -288,7 +323,8 @@ from quisk_tpu_torch import _kernels
 from quisk_tpu_torch.app import cli
 from quisk_tpu_torch.app.config import RadioConfig
 from quisk_tpu_torch.app.radio import Radio
-from quisk_tpu_torch.io import sources, wav
+from quisk_tpu_torch.hw.wideband import WidebandHardware
+from quisk_tpu_torch.io import native, pump, sources, wav
 from quisk_tpu_torch.io.feed import DeviceFeed
 from quisk_tpu_torch.modes import Mode
 from quisk_tpu_torch.ops import design
@@ -476,16 +512,24 @@ def phase_environment(report: dict) -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     t0 = time.perf_counter()
+    # the host's ingest library (g++) builds beside the kernels (nvcc)
+    ingest: dict = {}
+    gxx = threading.Thread(target=lambda: ingest.update(
+        lib=native.build(), s=time.perf_counter() - t0))
+    gxx.start()
     built = _kernels.build()
     secs = time.perf_counter() - t0
+    gxx.join()
     for name, info in built.items():
         for line in info["log"].splitlines():
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 print(f"  ptxas {name}: {line.strip()}")
-    print(f"kernels built: {sorted(built) or 'cached'} in {secs:.2f} s",
-          flush=True)
-    report.update(card=smi, build_s=secs)
+    print(f"kernels built: {sorted(built) or 'cached'} in {secs:.2f} s; "
+          f"ingest library {ingest.get('lib')} in "
+          f"{ingest.get('s', 0.0):.2f} s", flush=True)
+    assert ingest.get("lib") is not None, "no C++ compiler for the ingest"
+    report.update(card=smi, build_s=secs, ingest_build_s=ingest["s"])
     return smi
 
 
@@ -1741,6 +1785,58 @@ def compare_routes(a, sp, a_ref, sp_ref, modes, carrier: int, label: str,
     return out
 
 
+def channel_beats(outs, pos, n_out: int, K: int) -> tuple[dict, list]:
+    """The three signals of ``pfb_signal`` out of their channels' columns
+    of the kernel route's audio (blocks 1 on), each a 1 kHz tone 20 dB over
+    the median bin, and the three strongest channels of the last spec."""
+    beats = {}
+    for name, c in (("USB", PFB_USB), ("AM", PFB_AM), ("FM", PFB_FM)):
+        col = torch.cat([a.view(n_out, K)[:, int(pos[c])]
+                         for a, _ in outs[1:]]).cpu().numpy()
+        f_peak, contrast = tone_peak(col, PFB_RATE)
+        print(f"  channel {c} ({name}): tone at {f_peak:.1f} Hz, "
+              f"{contrast:.1f} dB over the median bin", flush=True)
+        # within 10 Hz, or one bin of a short rehearsal
+        assert abs(f_peak - BEAT_HZ) <= max(10.0, PFB_RATE / col.size), (
+            name, f_peak)
+        assert contrast > 20.0, (name, contrast)
+        beats[name] = (f_peak, contrast)
+    spec = outs[-1][1][0]
+    top = sorted(int(i) for i in torch.topk(spec, 3).indices)
+    ratio = float(10 * torch.log10(spec[PFB_USB] / spec.median()))
+    print(f"  spec: the 3 strongest channels {top}, channel {PFB_USB} "
+          f"{ratio:.1f} dB over the median channel", flush=True)
+    assert top == [PFB_USB, PFB_AM, PFB_FM] and ratio > 20.0
+    return beats, top
+
+
+def pfb_kernel_errors(pipe, state, x) -> tuple:
+    """Kernels #4 and #6 against their plain versions on one block of a
+    path (its entering ``state`` and input ``x``): (poly max abs error,
+    demod max abs error, the polyphase output v, the stage-1 output bb)."""
+    hist, dm = state
+    K = pipe.K1 * pipe.K2
+    n_out = 2 * x.shape[-1] // K
+    v = pk.pfb_poly_oversampled(hist, x, pipe.pfb.h_poly)
+    vp = pk.pfb_poly_oversampled_plain(hist, x, pipe.pfb.h_poly)
+    torch.cuda.synchronize()
+    poly_err = float((v - vp).abs().max())
+    poly_peak = float(vp.abs().max())
+    print(f"  pfb_poly_oversampled at K={K}, n_out={n_out}: "
+          f"max|kernel-plain| {poly_err:.2e} (peak {poly_peak:.3e}, "
+          f"tolerance {POLY_TOL:.0e} of it)", flush=True)
+    assert poly_err <= POLY_TOL * poly_peak
+    del vp
+    bb = pipe.stage1(v)
+    consts, kw = demod_args(pipe)
+    got = pk.pfb_demod_call(bb, dm, *consts, **kw)
+    want = pk.pfb_demod_plain(bb, dm, *consts, **kw)
+    torch.cuda.synchronize()
+    demod_err = compare_demod(pipe, got, want,
+                              f"pfb_demod at K1={pipe.K1}, n_out={n_out}")
+    return poly_err, demod_err, v, bb
+
+
 def pfb_pipeline(dev, mult: int, kernels: bool) -> PFBRxPipeline:
     return PFBRxPipeline.create(PFB_K, PFB_K * mult, quarters(PFB_K),
                                 channel_rate=PFB_RATE, pallas_poly=kernels,
@@ -1778,25 +1874,7 @@ def phase_pfb_receiver(report: dict) -> dict:
         assert a.dtype == torch.float32 and sp.shape == (1, K)
         assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(sp).all())
 
-    # the three signals come out of their channels' columns
-    beats = {}
-    for name, c in (("USB", PFB_USB), ("AM", PFB_AM), ("FM", PFB_FM)):
-        col = torch.cat([a.view(n_out, K)[:, int(pos[c])]
-                         for a, _ in outs[1:]]).cpu().numpy()
-        f_peak, contrast = tone_peak(col, PFB_RATE)
-        print(f"  channel {c} ({name}): tone at {f_peak:.1f} Hz, "
-              f"{contrast:.1f} dB over the median bin", flush=True)
-        # within 10 Hz, or one bin of a short rehearsal
-        assert abs(f_peak - BEAT_HZ) <= max(10.0, PFB_RATE / col.size), (
-            name, f_peak)
-        assert contrast > 20.0, (name, contrast)
-        beats[name] = (f_peak, contrast)
-    spec = outs[-1][1][0]
-    top = sorted(int(i) for i in torch.topk(spec, 3).indices)
-    ratio = float(10 * torch.log10(spec[PFB_USB] / spec.median()))
-    print(f"  spec: the 3 strongest channels {top}, channel {PFB_USB} "
-          f"{ratio:.1f} dB over the median channel", flush=True)
-    assert top == [PFB_USB, PFB_AM, PFB_FM] and ratio > 20.0
+    beats, top = channel_beats(outs, pos, n_out, K)
 
     # the torch-op route on the card, block by block
     ref = pfb_pipeline(dev, PFB_MULT, False)
@@ -1815,27 +1893,7 @@ def phase_pfb_receiver(report: dict) -> dict:
 
     # each kernel at the path's shape against its plain version, on the
     # path's own tensors (block 2, entering state non-zero)
-    hist, dm = states[2]
-    x = xs[2]
-    v = pk.pfb_poly_oversampled(hist, x, pipe.pfb.h_poly)
-    vp = pk.pfb_poly_oversampled_plain(hist, x, pipe.pfb.h_poly)
-    torch.cuda.synchronize()
-    poly_err = float((v - vp).abs().max())
-    poly_peak = float(vp.abs().max())
-    print(f"  pfb_poly_oversampled at K={K}, n_out={n_out}: max|kernel-plain|"
-          f" {poly_err:.2e} (peak {poly_peak:.3f}, tolerance {POLY_TOL:.0e} "
-          f"of it)", flush=True)
-    assert poly_err <= POLY_TOL * poly_peak
-    del vp
-    bb = pipe.stage1(v)
-    consts, kw = demod_args(pipe)
-    got = pk.pfb_demod_call(bb, dm, *consts, **kw)
-    want = pk.pfb_demod_plain(bb, dm, *consts, **kw)
-    torch.cuda.synchronize()
-    demod_err = compare_demod(pipe, got, want,
-                              f"pfb_demod at K1={pipe.K1}, "
-                              f"n_out={n_out}")
-    del got, want
+    poly_err, demod_err, v, bb = pfb_kernel_errors(pipe, states[2], xs[2])
 
     # the same pipeline on the CPU (one thread), PFB_CPU_MULT frames deep
     small, cpu = (pfb_pipeline(d, PFB_CPU_MULT, True) for d in (dev, "cpu"))
@@ -3333,6 +3391,422 @@ def phase_feed(report: dict, smi: str, rng) -> dict:
     return out
 
 
+# ------------------------------------------- slice 7b-1: the ingest plane
+WB_RATE = PFB_K * PFB_RATE / 2   # 196.608 MS/s, the PFB receiver's input
+WB_PKT = native.WIDEBAND_PAIRS   # samples a wideband datagram (8160)
+WB_SCALE = 0.08            # the capture under iq24's full scale (1 - 2^-23)
+WB_BLOCKS = 3
+WB_PACE = 48e6             # samples/s of the paced sender; half on a retry
+WB_BLAST_PACKETS = 24000   # each unpaced blast: 195.8 M samples
+WB_BLAST_BLOCK = 16 * 2 * WB_PKT     # a block the striped pump accepts
+HIQ_BLOCKS = 8
+HIQ_FROM_BLOCK = 2         # as phase 25
+
+
+def wideband_capture(dev) -> np.ndarray:
+    """The ingest phase's capture [n] complex64 on the host: pfb_signal's
+    blocks (noise, the USB / AM / FM carriers) from a torch generator of
+    their own (SEED + 8) scaled by WB_SCALE, cut to the whole packets that
+    cover WB_BLOCKS blocks."""
+    B = PFB_K * PFB_MULT
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    n = -(-WB_BLOCKS * B // WB_PKT) * WB_PKT
+    blocks = [(pfb_signal(dev, gen, PFB_K, B, blk) * WB_SCALE).cpu()
+              .numpy()[0] for blk in range(-(-n // B))]
+    return np.concatenate(blocks)[:n]
+
+
+def wait_for_samples(src, n: int, sender: threading.Thread | None,
+                     timeout: float = 60.0) -> bool:
+    """True once ``src`` holds ``n`` samples; False when the sender has
+    ended and the pump has parsed nothing new for 0.5 s, or on timeout."""
+    t0, last, still = time.time(), -1, 0
+    while src.available() < n:
+        if sender is None or not sender.is_alive():
+            got = src.stats()["samples"]
+            still = still + 1 if got == last else 0
+            last = got
+            if still > 50:
+                return False
+        if time.time() - t0 > timeout:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def paced_sender(iq: np.ndarray, addr, pace: float):
+    """A thread that streams ``iq`` to ``addr`` as wideband packets built by
+    the port's WidebandStream, through PacketSender paced at ``pace``
+    samples/s; (thread, the packets in the order sent, the sender)."""
+    tx = native.WidebandStream()
+    sent: list = []
+
+    def build(chunk):
+        pkt = tx.build(chunk)
+        sent.append(pkt)
+        return pkt
+    sender = pump.PacketSender(build, addr, WB_PKT)
+    th = threading.Thread(target=sender.send_stream, args=(iq,),
+                          kwargs={"rate_hz": pace}, name="wideband-sender")
+    return th, sent, sender
+
+
+def send_counted(pkts: list, addr, src, chunk: int) -> None:
+    """Send ``pkts`` to ``addr`` ``chunk`` at a time, each chunk once the
+    pump has counted the one before (no loss from a full socket buffer)."""
+    sk = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    base = src.stats()["packets"]
+    try:
+        for k in range(0, len(pkts), chunk):
+            for p in pkts[k:k + chunk]:
+                sk.sendto(p, addr)
+            want = base + min(len(pkts), k + chunk)
+            t0 = time.time()
+            while src.stats()["packets"] < want:
+                assert time.time() - t0 < 10.0, "pump stopped counting"
+                time.sleep(0.0005)
+    finally:
+        sk.close()
+
+
+def ingest_fed_run(dev, pipe, iq: np.ndarray, pace: float) -> dict:
+    """Leg (a): WidebandHardware's native pump fed live by the paced
+    sender, each block read straight into DeviceFeed's next pinned slot
+    (push_into) and stepped through ``pipe`` on the card."""
+    B = PFB_K * PFB_MULT
+    hw = WidebandHardware(n_streams=1, sample_rate=WB_RATE)
+    hw.open()
+    (addr,) = hw.start_pump(block=B)
+    th, sent, sender = paced_sender(iq, addr, pace)
+    read_ms: list = []
+
+    def fill(buf):
+        t0 = time.perf_counter()
+        got = hw.read_samples(B, out=buf)
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+        return got
+    try:
+        native_pump = hw.pump.stats()["native"]
+        feed = DeviceFeed(pipe, pipe.init_state(1), prefetch=1, device=dev)
+        reset_launches()
+        outs: list = []
+        t0 = time.perf_counter()
+        th.start()
+        for _ in range(WB_BLOCKS):
+            if not wait_for_samples(hw.pump, B, th):
+                break
+            got = feed.push_into((1, B), torch.complex64, fill)
+            assert got is not None, "the pump had the block but read none"
+            outs += got
+        outs += feed.flush()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        th.join(timeout=120.0)
+        assert not th.is_alive(), "the sender did not end"
+        wait_for_samples(hw.pump, 1 << 62, None)      # let the pump settle
+        st = hw.pump.stats()
+    finally:
+        sender.close()
+        hw.close()
+    return {"native": native_pump, "stats": st, "outs": outs, "sent": sent,
+            "launches": pfb_launches(), "staged_bytes": feed.staged_bytes,
+            "read_ms": read_ms, "wall_s": wall_s, "pace": pace}
+
+
+def ingest_routes(dev, pipe, sent: list, want: list, chunk: int) -> dict:
+    """Leg (b), the PFB route on a full ring: the same packets into a new
+    pump (a ring of four blocks), then WB_BLOCKS blocks stepped through
+    DeviceFeed read straight into its pinned slot (push_into) and, on
+    another pump, through read_samples -> numpy -> push (a staging
+    memcpy).  Host ms a block from block 1 on (to the last step's end),
+    each block's push (the read included), the staging a block; both
+    bit-equal to leg (a)."""
+    B = PFB_K * PFB_MULT
+    out = {}
+    for route in ("pinned", "numpy"):
+        hw = WidebandHardware(n_streams=1, sample_rate=WB_RATE)
+        hw.open()
+        (addr,) = hw.start_pump(block=2 * B)
+        try:
+            send_counted(sent, addr, hw.pump, chunk)
+            feed = DeviceFeed(pipe, pipe.init_state(1), prefetch=1,
+                              device=dev)
+            push_ms, outs, t1 = [], [], 0.0
+            torch.cuda.synchronize()
+            for blk in range(WB_BLOCKS):
+                t0 = time.perf_counter()
+                if blk == 1:
+                    t1 = t0
+                if route == "pinned":
+                    outs += feed.push_into(
+                        (1, B), torch.complex64,
+                        lambda buf: hw.read_samples(B, out=buf))
+                else:
+                    outs += feed.push(hw.read_samples(B))
+                push_ms.append((time.perf_counter() - t0) * 1e3)
+            outs += feed.flush()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) / (WB_BLOCKS - 1) * 1e3
+            same = len(outs) == len(want) and all(
+                torch.equal(a, b) and torch.equal(sa, sb)
+                for (a, sa), (b, sb) in zip(outs, want))
+            out[route] = {"ms_per_block": ms, "push_ms": push_ms,
+                          "staging_ms": feed.staging_s / WB_BLOCKS * 1e3,
+                          "staged_bytes": feed.staged_bytes,
+                          "bit_equal": same}
+            del outs
+        finally:
+            hw.close()
+    return out
+
+
+def drain_rate(send, src, block: int) -> dict:
+    """Run ``send()`` (a blast; returns packets sent) in a thread while this
+    thread drains ``src`` in blocks into one buffer; drained Msps (block
+    samples read over the time to the last block), losses, errors."""
+    result = {}
+    th = threading.Thread(target=lambda: result.update(sent=send()))
+    buf = np.empty((1, block), np.complex64)
+    drained, desynced, t_last = 0, False, 0.0
+    t0 = time.perf_counter()
+    th.start()
+    last, still = -1, 0
+    while True:
+        try:
+            got = src.read_samples(block, out=buf)
+        except RuntimeError:
+            desynced = True
+            break
+        if got is not None:
+            drained += block
+            t_last = time.perf_counter()
+            continue
+        if not th.is_alive():
+            n = src.stats()["samples"]
+            still = still + 1 if n == last else 0
+            last = n
+            if still > 200:
+                break
+        time.sleep(0.0002)
+    th.join(timeout=60.0)
+    st = src.stats()
+    sent = result.get("sent", 0)
+    return {"packets_sent": sent, "packets_parsed": st["packets"],
+            "lost_packets": sent - st["packets"],
+            "seq_errors": st["seq_errors"],
+            "ring_overruns": st["ring_overruns"], "desynced": desynced,
+            "drained_samples": drained,
+            "drained_msps": drained / max(t_last - t0, 1e-9) / 1e6}
+
+
+def blast_rates() -> dict:
+    """Leg (b): the unpaced native blaster into one wideband socket, and
+    striped over two sockets (blocks of WB_BLAST_BLOCK, a multiple of
+    2 * 8160)."""
+    one = pump.NativePump("wideband", ring_samples=1 << 24)
+    one.start()
+    try:
+        single = drain_rate(lambda: pump.blast(
+            one.local_addr, codec="wideband", n_packets=WB_BLAST_PACKETS),
+            one, WB_BLAST_BLOCK)
+        single["rcvbuf_bytes"] = one.stats()["rcvbuf_bytes"]
+    finally:
+        one.stop()
+        one.close()
+    sp = pump.StripedPump(2, ring_samples=1 << 24)
+    sp.start()
+    try:
+        striped = drain_rate(lambda: pump.blast_striped(
+            sp.local_addrs, WB_BLAST_PACKETS), sp, WB_BLAST_BLOCK)
+    finally:
+        sp.close()
+    return {"one_socket": single, "striped_two": striped}
+
+
+def rmem_max() -> int:
+    try:
+        with open("/proc/sys/net/core/rmem_max") as f:
+            return int(f.read())
+    except OSError:
+        return 212992
+
+
+def phase_ingest(report: dict, smi: str) -> dict:
+    """The PFB receiver fed by the ingest plane (slice 7b-1), from a stream
+    of its own (SEED + 8)."""
+    dev = torch.device(DEVICE)
+    K, B = PFB_K, PFB_K * PFB_MULT
+    n_out = 2 * PFB_MULT
+    budget_ms = n_out / PFB_RATE * 1e3
+    pipe = pfb_pipeline(dev, PFB_MULT, True)
+    iq = wideband_capture(dev)
+    print(f"  capture: {iq.size} samples = {iq.size // WB_PKT} wideband "
+          f"packets of {WB_PKT}, peak {float(np.abs(iq.view(np.float32)).max()):.3f}"
+          f" a rail", flush=True)
+
+    # (a) live, paced; once more at half the rate if the pump lost any
+    for pace in (WB_PACE, WB_PACE / 2):
+        run = ingest_fed_run(dev, pipe, iq, pace)
+        st = run["stats"]
+        lossless = (len(run["outs"]) == WB_BLOCKS and st["seq_errors"] == 0
+                    and st["ring_overruns"] == 0
+                    and st["packets"] == len(run["sent"]))
+        print(f"  paced at {pace / 1e6:.1f} MS/s: {len(run['sent'])} packets "
+              f"sent, {st['packets']} parsed, seq errors "
+              f"{st['seq_errors']}, ring overruns {st['ring_overruns']}, "
+              f"{len(run['outs'])} blocks in {run['wall_s']:.3f} s",
+              flush=True)
+        if lossless:
+            break
+        del run
+    assert lossless, "the pump lost packets at both pacing rates"
+    assert run["native"] is True, "not the native pump"
+    assert run["staged_bytes"] == 0, run["staged_bytes"]
+    n = run["launches"]
+    assert n == {"poly_os": WB_BLOCKS, "poly_crit": 0, "demod": WB_BLOCKS}, n
+    outs, sent = run["outs"], run["sent"]
+    for a, sp in outs:
+        assert a.shape == (1, n_out * pipe.K1, pipe.K2) and sp.shape == (1, K)
+        assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(sp).all())
+
+    # the same blocks stepped from card-resident copies of the packets sent
+    ref = np.empty(len(sent) * WB_PKT, np.complex64)
+    for i, p in enumerate(sent):
+        ref[i * WB_PKT:(i + 1) * WB_PKT] = native.unpack_iq24(p[8:])
+    st_r = pipe.init_state(1)
+    states, xs = [st_r], []
+    for k, (a, sp) in enumerate(outs):
+        x = torch.from_numpy(ref[k * B:(k + 1) * B]).view(1, B).to(dev)
+        st_r, (ar, spr) = pipe(st_r, x)
+        states.append(st_r)
+        xs.append(x)
+        assert torch.equal(a, ar) and torch.equal(sp, spr), k
+        del ar, spr
+    print(f"  ingest-fed PFB receiver: {WB_BLOCKS} blocks of {B} samples, "
+          f"launches {n}, staged bytes 0, audio and spec bit-equal to the "
+          f"resident step of the unpacked packets", flush=True)
+    pos = torch.as_tensor(pipe.chan_pos, device=dev)
+    beats, top = channel_beats(outs, pos, n_out, K)
+    poly_err, demod_err, _, _ = pfb_kernel_errors(pipe, states[2], xs[2])
+    x2 = xs[2]
+    del xs, states
+
+    # (b) host rates: the PFB routes on a full ring, then the blasters
+    chunk = max(1, min(64, rmem_max() // (2 * len(sent[0]))))
+    routes = ingest_routes(dev, pipe, sent, outs, chunk)
+    for r in routes.values():
+        assert r["bit_equal"], routes
+    assert routes["pinned"]["staged_bytes"] == 0
+    slot = torch.empty((1, B), dtype=torch.complex64, pin_memory=True)
+    dst = torch.empty((1, B), dtype=torch.complex64, device=dev)
+    copy_ms = cuda_ms(lambda: dst.copy_(slot, non_blocking=True), 10)
+    state = {"st": pipe.init_state(1)}
+
+    def step():
+        state["st"], _ = pipe(state["st"], x2)
+    step_ms = cuda_ms(step, 6, 2)
+    del slot, dst, x2
+    rates = blast_rates()
+    pinned, numpy_r = routes["pinned"], routes["numpy"]
+    out = {
+        "pace_msps": run["pace"] / 1e6, "packets": len(sent),
+        "packet_samples": WB_PKT, "sockets": 1, "blocks": WB_BLOCKS,
+        "stats": run["stats"],
+        "launches": n, "beats": beats, "spec_top": top,
+        "paced_read_ms": run["read_ms"], "routes": routes,
+        "copy_ms": copy_ms, "step_ms": step_ms,
+        "staging_saved_ms": numpy_r["staging_ms"],
+        "realtime_factor": budget_ms / pinned["ms_per_block"],
+        "blast": rates, "poly_err": poly_err, "demod_err": demod_err,
+        "socket_rmem_max": rmem_max()}
+    print(f"ingest timing [{smi}] (host clock, ms a block of {B} samples, "
+          f"blocks 1-{WB_BLOCKS - 1} on a full ring): pump -> pinned slot "
+          f"(push_into) {pinned['ms_per_block']:.4f} (each push, the read "
+          f"in it, {', '.join(f'{t:.4f}' for t in pinned['push_ms'])}), "
+          f"pump -> numpy -> staged (push) {numpy_r['ms_per_block']:.4f} "
+          f"(each read + push "
+          f"{', '.join(f'{t:.4f}' for t in numpy_r['push_ms'])}, staging "
+          f"memcpy {numpy_r['staging_ms']:.4f} a block); H2D copy of a "
+          f"slot {copy_ms:.4f} ms (events), PFB step {step_ms:.4f} ms "
+          f"(events); real-time factor of the ingest-fed receiver "
+          f"{out['realtime_factor']:.2f}x of {budget_ms:.2f} ms; leg (a) "
+          f"paced at {out['pace_msps']:.1f} MS/s, its reads into the slot "
+          f"{', '.join(f'{t:.4f}' for t in run['read_ms'])} ms", flush=True)
+    for name, r in rates.items():
+        print(f"  unpaced blast, {name.replace('_', ' ')} [{smi}]: drained "
+              f"{r['drained_msps']:.1f} MS/s ({r['drained_samples']} "
+              f"samples), packets sent {r['packets_sent']}, parsed "
+              f"{r['packets_parsed']}, lost {r['lost_packets']}, seq errors "
+              f"{r['seq_errors']}, ring overruns {r['ring_overruns']}, "
+              f"desynced {r['desynced']}", flush=True)
+    print(f"  a pump's socket receive buffer {rates['one_socket']['rcvbuf_bytes']}"
+          f" bytes (net.core.rmem_max {out['socket_rmem_max']})", flush=True)
+    report["ingest"] = out
+    del run, outs, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hiqsdr_radio(report: dict) -> None:
+    """A live HiQSDR Radio on the card (tests/test_pump.py:193-229): the
+    same 1442-byte packets over loopback into a card Radio and a CPU
+    Radio; zero sequence errors, audio a block > RADIO_CPU_DB apart."""
+    fs = 48000.0
+    radios = {d: Radio(RadioConfig(sample_rate=fs, mode="USB",
+                                   tune_hz=7000.0), hardware="hiqsdr",
+                       device=d) for d in ("cuda", "cpu")}
+    addrs = {d: r.hw.start_pump() for d, r in radios.items()}
+    for r in radios.values():
+        r.open()
+    n = (HIQ_BLOCKS * radios["cuda"].chain.block_in // native.HIQSDR_PAIRS
+         + 1) * native.HIQSDR_PAIRS
+    voice = sources.voice_like(fs, n, band=(300.0, 2400.0))
+    voice *= 0.3 / np.abs(voice).max()
+    iq = sources.ssb_signal(voice, fs, carrier_hz=7000.0).astype(
+        np.complex64)
+    sent = {}
+    try:
+        for d, r in radios.items():
+            tx, sent[d] = native.HiqsdrStream(), []
+
+            def build(chunk, tx=tx, log=sent[d]):
+                log.append(tx.build(chunk))
+                return log[-1]
+            sender = pump.PacketSender(build, addrs[d], native.HIQSDR_PAIRS)
+            sender.send_stream(iq, rate_hz=4 * fs)      # 4x real time
+            sender.close()
+            assert wait_for_samples(r.hw.pump, n, None)
+        assert sent["cuda"] == sent["cpu"]
+        t0 = time.perf_counter()
+        audio = radios["cuda"].run(blocks=HIQ_BLOCKS)
+        card_s = time.perf_counter() - t0
+        cpu = one_thread(lambda: radios["cpu"].run(blocks=HIQ_BLOCKS))
+        st = radios["cuda"].hw.pump.stats()
+    finally:
+        for r in radios.values():
+            r.close()
+    assert st["native"] is True
+    assert st["seq_errors"] == 0 and st["ring_overruns"] == 0, st
+    B = AUDIO_BLOCK
+    assert audio.shape == cpu.shape == (1, HIQ_BLOCKS * B), audio.shape
+    assert np.sqrt(np.mean(audio[0, HIQ_FROM_BLOCK * B:] ** 2)) > 0.01
+    snr = [snr_db(torch.as_tensor(cpu[0, k * B:(k + 1) * B],
+                                  dtype=torch.float64),
+                  torch.as_tensor(audio[0, k * B:(k + 1) * B],
+                                  dtype=torch.float64))
+           for k in range(HIQ_FROM_BLOCK, HIQ_BLOCKS)]
+    print(f"  HiQSDR Radio (48 kS/s, {len(sent['cuda'])} packets at 4x real "
+          f"time over loopback, native pump): seq errors 0, card vs CPU "
+          f"Radio blocks {HIQ_FROM_BLOCK}-{HIQ_BLOCKS - 1} min "
+          f"{min(snr):.1f} dB; {HIQ_BLOCKS} blocks in {card_s:.2f} s",
+          flush=True)
+    assert min(snr) > RADIO_CPU_DB, snr
+    report["hiqsdr_radio"] = {"cpu_match_min_db": min(snr),
+                              "packets": len(sent["cuda"]),
+                              "seconds": card_s}
+
+
 def user_session(device, tmp: str | None = None) -> dict:
     """A Quisk user's session (RadioConfig defaults at 48 kS/s, sim
     hardware): USER_BLOCKS blocks, the tone 1 kHz above the USB dial, a
@@ -4083,19 +4557,22 @@ def main(argv=None) -> int:
     crit = phase_pfb_critical(report, rx["xs"])
     ptimes = phase_timing_pfb(report, smi, rx, crit)
     poly_src = "quisk_tpu_torch/csrc/pfb_poly.cu"
+    poly_os = {"name": "pfb_poly_oversampled", "route": "cuda",
+               "source": poly_src,
+               "replaces": "quisk_tpu/ops/pallas_kernels.py:638"}
+    demod = {"name": "pfb_demod_call", "route": "cuda",
+             "source": "quisk_tpu_torch/csrc/pfb_demod.cu",
+             "replaces": "quisk_tpu/ops/pallas_kernels.py:844"}
     kernels += [
-        {"name": "pfb_poly_oversampled", "route": "cuda", "source": poly_src,
-         "replaces": "quisk_tpu/ops/pallas_kernels.py:638",
-         "path": "PFB receiver", "launches": rx["launches"]["poly_os"],
+        {**poly_os, "path": "PFB receiver",
+         "launches": rx["launches"]["poly_os"],
          "max_abs_err": rx["poly_err"], **ptimes["poly_os"]},
         {"name": "pfb_poly_critical", "route": "cuda", "source": poly_src,
          "replaces": "quisk_tpu/ops/pallas_kernels.py:724",
          "path": "PFBChannelizer", "launches": crit["launches"],
          "max_abs_err": crit["err"], **ptimes["poly_crit"]},
-        {"name": "pfb_demod_call", "route": "cuda",
-         "source": "quisk_tpu_torch/csrc/pfb_demod.cu",
-         "replaces": "quisk_tpu/ops/pallas_kernels.py:844",
-         "path": "PFB receiver", "launches": rx["launches"]["demod"],
+        {**demod, "path": "PFB receiver",
+         "launches": rx["launches"]["demod"],
          "max_abs_err": rx["demod_err"], **ptimes["demod"]},
     ]
     del rx, crit
@@ -4139,6 +4616,18 @@ def main(argv=None) -> int:
                     "launches": feed["launches"]["plain"],
                     "max_abs_err": feed["max_abs_err"], **times})
     torch.cuda.empty_cache()
+    # slice 7b-1: the PFB receiver fed by the ingest plane, and a live
+    # HiQSDR Radio (the capture from a stream of its own, SEED + 8)
+    ing = phase_ingest(report, smi)
+    kernels += [
+        {**poly_os, "path": "PFB receiver via wideband ingest",
+         "launches": ing["launches"]["poly_os"],
+         "max_abs_err": ing["poly_err"], **ptimes["poly_os"]},
+        {**demod, "path": "PFB receiver via wideband ingest",
+         "launches": ing["launches"]["demod"],
+         "max_abs_err": ing["demod_err"], **ptimes["demod"]},
+    ]
+    phase_hiqsdr_radio(report)
     phase_radio_user(report)
     phase_radio_wide(report, smi)
     torch.cuda.empty_cache()

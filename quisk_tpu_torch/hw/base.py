@@ -10,8 +10,8 @@ complex blocks of host memory, which the radio moves to its device.
 
 This module registers the plugins that need no network or USB radio:
 ``fixed``, ``file``, ``loopback`` and ``sim``.  The network and USB radios
-of the reference (hermes, hiqsdr, softrock, ...) belong to a later slice of
-the port; asking for one raises a ``KeyError`` that says so.
+(hermes, hiqsdr, softrock, wideband, ...) register themselves from their
+own modules, which ``quisk_tpu_torch.hw`` imports.
 """
 
 from __future__ import annotations
@@ -21,12 +21,6 @@ from typing import Callable
 import numpy as np
 
 _REGISTRY: dict[str, Callable[..., "Hardware"]] = {}
-
-#: the reference's network and USB plugins, not in this package yet
-LATER_SLICE = frozenset({
-    "afedri", "fifisdr", "hamlib", "hermes", "hiqsdr", "hl2_oob", "multus",
-    "perseus", "sdr8600", "sdriq", "sdrmicron", "soapy", "softrock",
-    "wideband"})
 
 
 def register_hardware(name: str):
@@ -43,10 +37,6 @@ def get_hardware(name: str) -> Callable[..., "Hardware"]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in LATER_SLICE:
-            raise KeyError(f"hardware {name!r} is a network/USB plugin of "
-                           f"slice 7b of the port, not ported yet; known: "
-                           f"{sorted(_REGISTRY)}") from None
         raise KeyError(f"unknown hardware {name!r}; known: {sorted(_REGISTRY)}")
 
 

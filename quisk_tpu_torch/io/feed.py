@@ -14,7 +14,10 @@ memory, so the feed copies from pinned buffers:
 - a numpy array or a pageable tensor is first staged, by a host memcpy,
   into a ring of ``prefetch + 1`` pinned buffers; a buffer is written
   again only after the event of the copy that last read it has completed;
-- a tensor already on the card is stepped as it is.
+- a tensor already on the card is stepped as it is;
+- :meth:`DeviceFeed.push_into` lets a producer write the block straight
+  into the ring's next pinned buffer (a pump's ``read_samples(n,
+  out=buf)``), under the same guard and with no staging memcpy.
 
 The step waits on each block's copy event before it reads the block, and
 each device block is marked as used by the compute stream
@@ -31,6 +34,10 @@ Usage::
     for y in feed.flush():
         consume(y)
     state = feed.state
+
+    # or filled in place, e.g. from the native pump:
+    outs = feed.push_into((1, n), torch.complex64,
+                          lambda buf: hw.read_samples(n, out=buf))
 
 On ``device="cpu"`` the blocks become CPU tensors and the same order of
 steps runs with no copy.
@@ -81,6 +88,27 @@ class DeviceFeed:
             outs.append(self._run(*self._q.popleft()))
         return outs
 
+    def push_into(self, shape, dtype, fill) -> list | None:
+        """Enqueue one block that ``fill(buf)`` writes in place into a host
+        buffer ``buf`` of ``shape`` and ``dtype``; returns any outputs that
+        became due, or None when ``fill`` returned None (a starved source:
+        nothing is enqueued and the buffer is taken again next call).
+
+        On the card ``buf`` is the ring's next pinned buffer, handed out
+        only after the event of the copy that last read it has completed,
+        so a producer never writes a block still being copied; nothing is
+        staged (``staged_bytes`` does not move).  On the CPU ``buf`` is a
+        new tensor, stepped as it is."""
+        buf = (self._ring_buffer(shape, dtype) if self.device.type == "cuda"
+               else torch.empty(shape, dtype=dtype))
+        if fill(buf) is None:
+            return None
+        self._q.append(self._put(buf))
+        outs = []
+        while len(self._q) > self.prefetch:
+            outs.append(self._run(*self._q.popleft()))
+        return outs
+
     def flush(self) -> list:
         """Drain the in-flight blocks; returns their outputs."""
         outs = []
@@ -120,16 +148,22 @@ class DeviceFeed:
         buffer of the ring, once the copy that last read it is done."""
         x = (x_host if isinstance(x_host, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(x_host)))
+        buf = self._ring_buffer(x.shape, x.dtype)
+        t0 = time.perf_counter()
+        buf.copy_(x)
+        self.staging_s += time.perf_counter() - t0
+        self.staged_bytes += x.numel() * x.element_size()
+        return buf
+
+    def _ring_buffer(self, shape, dtype) -> torch.Tensor:
+        """The ring's next pinned buffer, of ``shape`` and ``dtype``, once
+        the copy that last read it is done."""
         i = self._slot
         if self._ring_ev[i] is not None:
             self._ring_ev[i].synchronize()
             self._ring_ev[i] = None
         buf = self._ring[i]
-        if buf is None or buf.shape != x.shape or buf.dtype != x.dtype:
-            buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        if buf is None or buf.shape != tuple(shape) or buf.dtype != dtype:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
             self._ring[i] = buf
-        t0 = time.perf_counter()
-        buf.copy_(x)
-        self.staging_s += time.perf_counter() - t0
-        self.staged_bytes += x.numel() * x.element_size()
         return buf

@@ -400,9 +400,13 @@ def test_registry_holds_the_base_plugins_and_names_the_later_slice():
     for name in ("fixed", "file", "loopback", "sim"):
         assert hw.get_hardware(name).__name__ == \
             jhw.get_hardware(name).__name__
-    for name in ("hermes", "softrock", "hiqsdr"):
-        with pytest.raises(KeyError, match="slice 7b"):
-            hw.get_hardware(name)
+    # the network / USB plugins (slice 7b-1) are registered too now: each
+    # resolves to the port's class of the reference's name
+    for name in ("afedri", "fifisdr", "hamlib", "hermes", "hiqsdr",
+                 "hl2_oob", "multus", "perseus", "sdr8600", "sdriq",
+                 "sdrmicron", "soapy", "softrock", "wideband"):
+        assert hw.get_hardware(name).__name__ == \
+            jhw.get_hardware(name).__name__, name
     with pytest.raises(KeyError, match="unknown hardware"):
         hw.get_hardware("nope")
 
