@@ -277,13 +277,46 @@ Phases, each fatal on failure:
     16-byte aligned); and each mode's time at C = 1, and at C = 32 on 32
     distinct rows and on 32 copies of one row, beside its [1024, 2048]
     time, the earlier design's, the byte bound and the estimate of its
-    dependent chain read from the kernel's SASS.
+    dependent chain read from the kernel's SASS;
+30. the wide Radio of phase 26 with every user surface attached, at full
+    width (1024 channels, 960 kS/s, playback_rate 96000 so the play path's
+    x2 Interpolator runs on the card): enable_audio_out into a WAV sink,
+    a TCI client (audio_stream_channels:1, audio_start:0), the K4 server,
+    the ZZ pty, the web UI with a /ws client, and a RemoteRadioServer with
+    an HMAC-authenticated ControlHeadClient and the sound and graph UDP
+    streams; 16 blocks paced at the block clock, one retune through each
+    of TCI vfo, K4 FA, ZZFA and a web UI freq command: each lands in
+    freq_hz and the shared CAT state (read back over K4 and the head),
+    channel 0's beat moves to 10000 - dial Hz; the played blocks (the mono
+    mix through the card's Interpolator) bit-equal to a second
+    Interpolator on the same blocks and > 90 dB against a CPU Radio
+    (channels=8) given the same commands at the same blocks from block 2;
+    the TCI RX stream equal to the mono mix, the remote sound within 1 LSB
+    of 16 bits, the web UI's spectrum rows equal to the graph's, the
+    remote's within its centi-dB, the graph's against the CPU's within
+    1e-4 of the peak power; what the player took from its servo reached
+    the sink and the WAV, no overrun; run_once ms with every surface
+    (host clock) beside phase 26's, the Interpolator by events, mix_stereo
+    at 1024 channels, the player's fill and underruns;
+31. the keyed Radio of phase 27 from its live sources (from a stream of
+    its own, SEED + 10): enable_mic of a 48 kHz voice WAV through
+    AudioCapture (the loop paced by the capture's fill), keyed in turn by
+    set_ptt (16 blocks), play_cq of a 44.1 kHz WAV through
+    VarRateResampler (one repeat, then stop_cq), a TCI client's trx with
+    its TX_AUDIO_STREAM (then tci_transmit_once), a MIDI PTT note, the
+    serial key and a repeater favourite (the TX dial shifted and the
+    CTCSS tone on key-down, both restored on key-up): no mic starvation;
+    each keyed block's TX IQ >= 80 dB against a CPU Radio fed the same mic
+    blocks and commands; kTxAlc once a keyed block and never unkeyed, and
+    bit-equal to its plain version on one PTT block's ALC input; voice rho
+    > 0.7 over the PTT leg; each source's ms a keyed block, kTxAlc's at
+    [1, 2048] with its plain version and bound.
 
 Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
 20-23 from another (SEED + 3) and phase 20's edges from another (SEED +
 7), phases 24-28 from another (SEED + 4), phase 24b's capture from
 another (SEED + 8), phase 29 from another (SEED + 5) and its edges from
-another (SEED + 6).
+another (SEED + 6), phase 31 from another (SEED + 10).
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
@@ -292,7 +325,8 @@ JSON object of kernels (one entry per kernel and path shape: the front
 kernel's plain mode has one for the flagship, one for the NFM path and one
 for the flagship fed through DeviceFeed, kernels #4 and #6 one for the PFB
 receiver and one for it fed by the ingest plane, the PLL kernel and the
-AGC / ALC kernel one for each mode);
+AGC / ALC kernel one for each mode and one more for TxALC on the keyed
+Radio's live sources);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--out FILE`` also writes every number measured to FILE as JSON.
@@ -303,6 +337,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import dataclasses
 import io
@@ -320,7 +355,7 @@ import torch
 from scipy import signal as sig
 
 from quisk_tpu_torch import _kernels
-from quisk_tpu_torch.app import cli
+from quisk_tpu_torch.app import cli, remote, tci
 from quisk_tpu_torch.app.config import RadioConfig
 from quisk_tpu_torch.app.radio import Radio
 from quisk_tpu_torch.hw.wideband import WidebandHardware
@@ -3879,14 +3914,14 @@ def phase_radio_user(report: dict) -> None:
                             "smeter_db": s["smeter"]}
 
 
-def wide_radio(device, channels: int):
+def wide_radio(device, channels: int, **cfg):
     """The Radio at 960 kS/s, every channel on the one sim capture: channel
     0 USB 1 kHz below the tone, sub-receivers 1-7 alternately LSB above it
     and USB below it, each at its own beat (1000 + 100 c Hz); the others
-    as channel 0."""
+    as channel 0.  ``cfg``: more RadioConfig fields."""
     r = Radio(RadioConfig(sample_rate=FS, channels=channels,
                           audio_block=AUDIO_BLOCK, mode="USB",
-                          tune_hz=WIDE_TONE_HZ - BEAT_HZ),
+                          tune_hz=WIDE_TONE_HZ - BEAT_HZ, **cfg),
               hardware="sim", device=device)
     for c in range(1, 8):
         lsb = c % 2 == 1
@@ -4508,6 +4543,616 @@ def agc_edges(out: dict, smi: str) -> None:
                  sass_cycles=cycles[mode], sass_ms=est, sm_clock_mhz=mhz)
 
 
+# ------------------------- slice 7b-2: the Radio through every user surface
+SURF_BLOCKS = 16
+SURF_PLAYBACK = 96000.0            # the playback device: x2 from 48 kHz
+# (after block, surface, new dial): one retune through each CAT / TCI /
+# web surface, channel 0's beat 10000 - dial Hz
+SURF_RETUNES = ((3, "tci", 8800), (6, "k4", 8500), (9, "zz", 8200),
+                (12, "webui", 9300))
+SURF_FROM_BLOCK = 2                # as phase 26
+SURF_DB = 90.0                     # played audio, card vs CPU Radio
+SURF_SPEC_RTOL = 1e-4              # spectrum rows' power, card vs CPU
+SURF_SECRET = "chip-smoke"
+REMOTE_LSB = 1.0 / 32767.0         # the remote sound stream's 16 bits
+REMOTE_CDB = 0.01                  # the remote graph stream's centi-dB
+BLOCK_S = AUDIO_BLOCK / 48000.0    # the block clock
+KEY_TX_DB = 80.0                   # keyed TX IQ, card vs CPU Radio
+KEY_PTT_BLOCKS = 16                # the PTT leg: phase 27's length
+CQ_RATE = 44100.0                  # the CQ message's WAV rate
+CQ_SAMPLES = 2 * AUDIO_BLOCK       # 2 blocks at 44.1 kHz: 3 at 48 kHz
+CQ_PATTERN = [True, True, True, False, True, True, True]
+TCI_TX_BLOCKS = 3                  # 2 through run_once, 1 tci_transmit_once
+RPTR_OFFSET_KHZ = 600.0
+RPTR_TONE_HZ = 88.5
+WAIT_S = 10.0
+
+
+def wait_until(pred, what: str, timeout: float = WAIT_S) -> None:
+    t0 = time.monotonic()
+    while not pred():
+        assert time.monotonic() - t0 < timeout, f"timed out: {what}"
+        time.sleep(0.002)
+
+
+class WsClient:
+    """A masked RFC 6455 client, the role of a TCI program or a browser
+    page: the upgrade, text and binary frames out, and a reader thread that
+    keeps every frame the server sends."""
+
+    def __init__(self, port: int, path: str = "/"):
+        self.s = socket.create_connection(("127.0.0.1", port), timeout=WAIT_S)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.s.sendall((f"GET {path} HTTP/1.1\r\nHost: x\r\nUpgrade: "
+                        f"websocket\r\nConnection: Upgrade\r\n"
+                        f"Sec-WebSocket-Key: {key}\r\n"
+                        f"Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            chunk = self.s.recv(4096)
+            assert chunk, "the server closed during the upgrade"
+            resp += chunk
+        head, rest = resp.split(b"\r\n\r\n", 1)
+        assert b" 101 " in head.split(b"\r\n")[0], head
+        assert tci._ws_accept_key(key).encode() in head, head
+        self.dec = tci.WsDecoder()
+        self.frames: list = []
+        self.lock = threading.Lock()
+        self.frames += self.dec.feed(rest)
+        self.stop_ = threading.Event()
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        self.s.settimeout(0.1)
+        while not self.stop_.is_set():
+            try:
+                data = self.s.recv(1 << 20)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            if not data:
+                return
+            got = self.dec.feed(data)
+            with self.lock:
+                self.frames += got
+
+    def send(self, op: int, data: bytes) -> None:
+        mask = os.urandom(4)
+        n = len(data)
+        head = bytes([0x80 | op])
+        if n < 126:
+            head += bytes([0x80 | n])
+        elif n < 65536:
+            head += bytes([0x80 | 126]) + n.to_bytes(2, "big")
+        else:
+            head += bytes([0x80 | 127]) + n.to_bytes(8, "big")
+        m = np.frombuffer((mask * (n // 4 + 1))[:n], np.uint8)
+        body = (np.frombuffer(data, np.uint8) ^ m).tobytes()
+        self.s.sendall(head + mask + body)
+
+    def text(self, msg: str) -> None:
+        self.send(0x1, msg.encode())
+
+    def taken(self, op: int) -> list:
+        with self.lock:
+            return [p for o, p in self.frames if o == op]
+
+    def texts(self) -> list:
+        return [p.decode() for p in self.taken(0x1)]
+
+    def close(self) -> None:
+        self.stop_.set()
+        self.thread.join(timeout=WAIT_S)
+        self.s.close()
+
+
+def record_calls(obj, name: str) -> list:
+    """Wrap obj.name so that each call's arguments and result are kept
+    (copies), and return the list they go to."""
+    log, fn = [], getattr(obj, name)
+
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        log.append(([np.array(x) if isinstance(x, np.ndarray) else x
+                     for x in a], k, np.array(out)))
+        return out
+    setattr(obj, name, wrapped)
+    return log
+
+
+def mono_mix(r, audio: np.ndarray) -> np.ndarray:
+    """The block as Radio.play and the TCI stream mix it: the stereo
+    routing, then the mean of the pair (float32)."""
+    st = r.mix_stereo(audio)
+    return 0.5 * (st[0] + st[1])
+
+
+def surface_session(r, tmp: str, side: str, card: bool) -> dict:
+    """The wide Radio through every surface: the player into a WAV sink,
+    TCI (RX audio, a vfo retune), K4 (FA), the ZZ pty (ZZFA), the web UI
+    (/ws: spectrum rows, a freq command), and a remote control head
+    (HMAC link, sound and graph over UDP); SURF_BLOCKS blocks paced at the
+    block clock, one retune through each surface at SURF_RETUNES.  The
+    CPU side (card=False) takes the same commands at the same blocks as
+    plain calls."""
+    r.enable_audio_out(f"wav:{os.path.join(tmp, side + '.wav')}")
+    pushes = record_calls(r.player, "push")
+    servo_out = record_calls(r.player.servo.rs, "process")
+    reads, servo_read = [], r.player.servo.read
+
+    def read(n):
+        # the player's read of the servo, and how much of it was audio
+        # (the rest is an underrun's zero padding)
+        have = min(n, len(r.player.servo.buf))
+        blk = servo_read(n)
+        reads.append((have, np.array(blk)))
+        return blk
+    r.player.servo.read = read
+    out = {"audio": [], "ms": [], "rows": [], "refreshed": []}
+    if card:
+        tport = r.enable_tci(0)
+        kport = r.enable_k4(0)
+        zz = r.enable_cat_serial("")
+        wport = r.enable_webui(0)
+        tcl = WsClient(tport)
+        wait_until(lambda: "start;" in tcl.texts(), "TCI preamble")
+        tcl.text("audio_stream_channels:1;audio_start:0;")
+        wait_until(lambda: "audio_start:0;" in tcl.texts(), "audio_start")
+        wcl = WsClient(wport, "/ws")
+        wait_until(lambda: r.webui.n_clients == 1, "web UI client")
+        k4 = socket.create_connection(("127.0.0.1", kport), timeout=WAIT_S)
+        zfd = os.open(zz.slave_name, os.O_RDWR | os.O_NOCTTY)
+        rsrv = remote.RemoteRadioServer(SURF_SECRET)
+        rport = rsrv.start()
+        head = remote.ControlHeadClient(SURF_SECRET, "127.0.0.1", rport)
+        urx = remote.UdpStreamRx(timeout=WAIT_S)
+        utx = remote.UdpStreamTx(("127.0.0.1", urx.port))
+        out["cat_reads"] = []
+    t_next = time.perf_counter()
+    try:
+        for k in range(SURF_BLOCKS):
+            retune = [(s_, f) for b, s_, f in SURF_RETUNES if b == k]
+            if card and retune and retune[0][0] == "zz":
+                os.write(zfd, f"ZZFA{retune[0][1]:011d};".encode())
+            n_rows = len(r.graph.waterfall)
+            t0 = time.perf_counter()
+            a = r.run_once()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["audio"].append(a)
+            out["refreshed"].append(len(r.graph.waterfall) > n_rows)
+            if out["refreshed"][-1]:
+                out["rows"].append(np.array(r.graph.waterfall[-1][0]))
+            if card:
+                utx.send_sound(mono_mix(r, a))
+                if len(r.graph.waterfall) > n_rows:
+                    utx.send_graph(out["rows"][-1])
+            if retune:
+                surf, f = retune[0]
+                if not card:
+                    r.set_frequency(float(f))
+                elif surf == "tci":
+                    tcl.text(f"vfo:0,0,{f};")
+                elif surf == "k4":
+                    k4.sendall(f"FA{f:011d};".encode())
+                elif surf == "webui":
+                    wcl.text(json.dumps({"cmd": "freq", "value": f}))
+                # set_frequency writes the shared CAT state last: the
+                # retune has finished when it holds the new dial
+                wait_until(lambda: r._cat_state().freq == f,
+                           f"{surf} retune")
+                if card:
+                    # read the dial back through the K4 link and the
+                    # control head: both see the one shared state
+                    k4.sendall(b"FA;")
+                    buf = b""
+                    while not buf.endswith(b";"):
+                        buf += k4.recv(64)
+                    rsrv.state["freq"] = int(r.freq_hz)
+                    out["cat_reads"].append(
+                        (surf, f, r.freq_hz, r._cat_state().freq,
+                         buf.decode(), head.command("freq")))
+            if card:
+                t_next += BLOCK_S
+                time.sleep(max(0.0, t_next - time.perf_counter()))
+        wait_until(lambda: len(r.player.servo.buf) == 0, "player drain")
+        out["player"] = r.player.stats()
+        if card:
+            n_s = len(out["rows"])
+            wait_until(lambda: sum(p[:1] == b"S" for p in wcl.taken(0x2))
+                       >= n_s, "web UI spectrum rows")
+            out["webui_rows"] = [np.frombuffer(p[24:], np.float32)
+                                 for p in wcl.taken(0x2) if p[:1] == b"S"]
+            out["webui_m"] = sum(p[:1] == b"M" for p in wcl.taken(0x2))
+            got = [urx.recv() for _ in range(SURF_BLOCKS + n_s)]
+            out["remote"] = got
+            out["remote_lost"] = urx.lost
+            out["head_ptt"] = head.command("ptt 0")
+            n_tci = SURF_BLOCKS * AUDIO_BLOCK
+            wait_until(lambda: sum(u[-1].size for u in (
+                tci.unpack_stream(p) for p in tcl.taken(0x2))) >= n_tci,
+                "TCI RX audio")
+            out["tci_mono"] = np.concatenate([
+                u[-1] for u in (tci.unpack_stream(p)
+                                for p in tcl.taken(0x2))
+                if u[4] == tci.RX_AUDIO_STREAM])
+    finally:
+        if card:
+            head.close()
+            rsrv.stop()
+            urx.sock.close()
+            utx.sock.close()
+            os.close(zfd)
+            k4.close()
+            tcl.close()
+            wcl.close()
+        chunks = r.player.sink._chunks
+        r.close()
+    out["pushes"] = [p[0][0] for p in pushes]
+    out["servo"] = np.concatenate([o for _, _, o in servo_out])
+    out["sink_chunks"] = [np.array(c) for c in chunks]
+    out["reads"] = reads
+    out["wav"], out["wav_fs"] = wav.read_audio_wav(
+        os.path.join(tmp, side + ".wav"))
+    return out
+
+
+def phase_radio_surfaces(report: dict, smi: str) -> None:
+    """Phase 30: the 1024-channel Radio with every user surface attached,
+    at full width, against a CPU Radio (channels=8) given the same commands
+    at the same blocks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        r = wide_radio(None, C, playback_rate=SURF_PLAYBACK)
+        card = surface_session(r, tmp, "card", card=True)
+        cpu = one_thread(lambda: surface_session(
+            wide_radio("cpu", 8, playback_rate=SURF_PLAYBACK), tmp, "cpu",
+            card=False))
+    dev = torch.device(DEVICE)
+    L = int(SURF_PLAYBACK / 48000.0)
+    monos = [mono_mix(r, a) for a in card["audio"]]
+    # the played blocks: the mono mix through a second Interpolator built as
+    # enable_audio_out builds it, bit-equal to what the player was given
+    from quisk_tpu_torch.ops.resample import Interpolator
+    ip = Interpolator.create(L, AUDIO_BLOCK, fs_out=SURF_PLAYBACK,
+                             complex_state=False, device=dev)
+    st = ip.init_state(1)
+    for k, m in enumerate(monos):
+        st, up = ip(st, torch.as_tensor(m[None], device=dev))
+        assert np.array_equal(up[0].cpu().numpy(), card["pushes"][k]), k
+    # each retune landed, in freq_hz and the shared CAT state, and reads
+    # back through K4 and the control head
+    for surf, f, fr, cat_f, k4_read, head_read in card["cat_reads"]:
+        assert fr == f and cat_f == f, (surf, f, fr, cat_f)
+        assert k4_read == f"FA{f:011d};", (surf, k4_read)
+        assert head_read == str(f), (surf, head_read)
+    # channel 0's beat in each stretch between retunes (its last 2 blocks)
+    edges = [0] + [b + 1 for b, _, _ in SURF_RETUNES] + [SURF_BLOCKS]
+    dials = [WIDE_TONE_HZ - BEAT_HZ] + [f for _, _, f in SURF_RETUNES]
+    beats = []
+    for (lo, hi), d in zip(zip(edges[:-1], edges[1:]), dials):
+        got = beat_hz(np.concatenate([a[0] for a in card["audio"][hi - 2:hi]]),
+                      48000.0)
+        beats.append((WIDE_TONE_HZ - d, got))
+        assert abs(got - (WIDE_TONE_HZ - d)) <= 30.0, (lo, hi, d, got)
+    # the played audio against the CPU Radio's
+    snr = [snr_db(torch.as_tensor(c, dtype=torch.float64),
+                  torch.as_tensor(g, dtype=torch.float64))
+           for g, c in zip(card["pushes"][SURF_FROM_BLOCK:],
+                           cpu["pushes"][SURF_FROM_BLOCK:])]
+    assert min(snr) > SURF_DB, snr
+    # the TCI RX stream is the mono mix, sample for sample; the remote
+    # sound stream the same to 16 bits
+    want = np.concatenate(monos)
+    assert np.array_equal(card["tci_mono"][:want.size], want)
+    sounds = [d for kind, d in card["remote"] if kind == "sound"]
+    graphs = [d for kind, d in card["remote"] if kind == "graph"]
+    assert len(sounds) == SURF_BLOCKS and card["remote_lost"] == 0
+    remote_err = max(float(np.max(np.abs(s_ - m)))
+                     for s_, m in zip(sounds, monos))
+    assert remote_err <= REMOTE_LSB * (1 + 1e-6), remote_err
+    # the spectrum rows: the web UI's and the remote head's equal the
+    # graph's; the graph's match the CPU Radio's
+    rows = card["rows"]
+    assert rows and len(card["webui_rows"]) == len(rows), (
+        len(card["webui_rows"]), len(rows))
+    assert all(np.array_equal(w, g) for w, g in zip(card["webui_rows"], rows))
+    assert len(graphs) == len(rows)
+    graph_err = max(float(np.max(np.abs(g - w))) for g, w in zip(graphs, rows))
+    assert graph_err < REMOTE_CDB + 1e-5, graph_err
+    assert len(cpu["rows"]) == len(rows)
+    spec_rel = max(float(np.max(np.abs(10 ** (a / 10) - 10 ** (b / 10)))
+                         / np.max(10 ** (b / 10)))
+                   for a, b in zip(rows, cpu["rows"]))
+    assert spec_rel <= SURF_SPEC_RTOL, spec_rel
+    # the player: what it took from the servo reached the sink and the WAV
+    reads = card["reads"]
+    assert len(reads) == len(card["sink_chunks"])
+    assert all(np.array_equal(b.astype(np.float32), c) for (_, b), c in
+               zip(reads, card["sink_chunks"]))
+    stream = np.concatenate([b[:h] for h, b in reads])
+    pads = sum(h < b.size for h, b in reads)
+    assert np.array_equal(stream, card["servo"])
+    q = (np.clip(np.concatenate(card["sink_chunks"]), -1, 1) * 32767.0
+         ).astype("<i2")
+    assert card["wav_fs"] == SURF_PLAYBACK
+    assert np.array_equal(np.round(card["wav"] * 32768.0).astype("<i2"), q)
+    pl = card["player"]
+    assert pl["overruns"] == 0, pl
+    # timing: run_once with the surfaces, the interpolator, mix_stereo
+    run_ms = float(np.mean(card["ms"][SURF_FROM_BLOCK:]))
+    # a block that refreshed the graph streams the rows (web UI, remote);
+    # the ZZ pty's retune runs inside run_once, the other surfaces' on
+    # their server threads between blocks
+    zz = next(b for b, s_, _ in SURF_RETUNES if s_ == "zz")
+    refr = [m for m, f in zip(card["ms"], card["refreshed"])
+            if f][1:]
+    other = [m for k, (m, f) in enumerate(zip(card["ms"], card["refreshed"]))
+             if k >= SURF_FROM_BLOCK and not f and k != zz]
+    x = torch.as_tensor(monos[0][None], device=dev)
+    interp_ms = cuda_ms(lambda: ip(st, x), 20)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        r.mix_stereo(card["audio"][-1])
+    mix_ms = (time.perf_counter() - t0) / 10 * 1e3
+    bare = report["radio_wide"]["run_once_ms"]
+    print(f"  wide Radio, every surface (player x{L} to "
+          f"{SURF_PLAYBACK:.0f} Hz into a WAV, TCI, K4, ZZ pty, web UI, "
+          f"remote head; {SURF_BLOCKS} blocks paced at the block clock): "
+          f"retunes " + ", ".join(f"{s_} {f}" for _, s_, f in SURF_RETUNES)
+          + " landed in freq_hz and the CAT state (read back over K4 and "
+          f"the head); channel 0 beats " + ", ".join(
+              f"{g:.1f}/{w:.0f}" for w, g in beats) + " Hz; played audio "
+          f"card vs CPU Radio (channels=8), blocks {SURF_FROM_BLOCK}-"
+          f"{SURF_BLOCKS - 1} min {min(snr):.1f} dB; TCI RX stream equal "
+          f"({want.size} samples); remote sound max {remote_err:.3e} "
+          f"(1 LSB {REMOTE_LSB:.3e}), graph max {graph_err:.4f} dB, lost "
+          f"{card['remote_lost']}; web UI rows equal the graph's "
+          f"({len(rows)} rows, {card['webui_m']} sub-RX rows), vs CPU "
+          f"{spec_rel:.2e} of the peak power; sink = servo output "
+          f"({stream.size} samples, {pads} underrun pads), WAV = sink",
+          flush=True)
+    print(f"wide Radio surfaces timing [{smi}]: run_once with every surface "
+          f"{run_ms:.4f} ms/block (host clock, blocks {SURF_FROM_BLOCK}-"
+          f"{SURF_BLOCKS - 1}, max {max(card['ms'][SURF_FROM_BLOCK:]):.4f}; "
+          f"{np.mean(refr):.4f} on the {len(refr)} blocks after the first "
+          f"that refreshed the graph and streamed its rows, "
+          f"{card['ms'][zz]:.4f} on block {zz}, which retuned from the ZZ "
+          f"pty inside it, {np.mean(other):.4f} on the {len(other)} "
+          f"others), "
+          f"bare (phase 26, this call) {bare:.4f}; Interpolator x{L} "
+          f"{interp_ms:.4f} ms (events); mix_stereo at {C} channels "
+          f"{mix_ms:.4f} ms (host); player fill {pl['fill']:.3f}, underruns "
+          f"{pl['underruns']}, overruns {pl['overruns']}, blocks played "
+          f"{pl['blocks_played']}", flush=True)
+    report["radio_surfaces"] = {
+        "run_once_ms": run_ms, "run_once_ms_blocks": card["ms"],
+        "refreshed": card["refreshed"],
+        "run_once_ms_refresh": float(np.mean(refr)),
+        "run_once_ms_other": float(np.mean(other)),
+        "run_once_ms_zz_retune": card["ms"][zz],
+        "bare_run_once_ms": bare, "interp_ms": interp_ms, "mix_ms": mix_ms,
+        "cpu_match_min_db": min(snr), "beats_hz": beats,
+        "remote_sound_err": remote_err, "remote_graph_err_db": graph_err,
+        "spec_rel": spec_rel, "player": pl, "underrun_pads": pads,
+        "webui_rows": len(rows), "webui_subrx_rows": card["webui_m"]}
+
+
+def keyed_radio(device, mic):
+    """Phase 27's loopback session (tests/test_tx_runtime.py:124-156) up to
+    the mic: ``mic`` a source for enable_mic (the card) or an object with
+    get(n) (the CPU's replay of the card's mic blocks)."""
+    r = Radio(RadioConfig(sample_rate=48000.0, audio_block=AUDIO_BLOCK,
+                          mode="USB", tune_hz=9000.0, agc=False),
+              hardware="loopback", device=device)
+    r.open()
+    r.enable_tx()
+    r.tx_monitor = True
+    r.run_once()
+    r.transmit(np.zeros(r.tx.block, np.float32), ptt=True)
+    if isinstance(mic, str):
+        r.enable_mic(mic)
+    else:
+        r.mic = mic
+    return r
+
+
+def keyed_session(r, cq_path: str, tci_audio: np.ndarray, card: bool,
+                  hook=None) -> list:
+    """Key the loopback Radio from each live source in turn: PTT, the CQ
+    keyer (one repeat, then stop_cq), a TCI client's trx with its TX audio
+    stream (then tci_transmit_once), a MIDI PTT note, the serial key, and a
+    repeater favourite.  Before each block the card waits for a block of
+    mic in the capture (the mic clock paces the loop).  Returns one record
+    a block: source, keyed, audio row 0, TX IQ, kTxAlc launches, ms."""
+    recs = []
+    B = AUDIO_BLOCK
+
+    def step(source, fn=None):
+        if card:
+            wait_until(lambda: r.mic.fill >= B, "mic capture")
+        r.tx_iq_last = None
+        n0 = agc_scan.tx_alc_scan.launches
+        t0 = time.perf_counter()
+        a = (fn or r.run_once)()
+        ms = (time.perf_counter() - t0) * 1e3
+        recs.append({"source": source, "keyed": r.tx_iq_last is not None,
+                     "audio": None if fn else a[0], "iq": r.tx_iq_last,
+                     "launches": agc_scan.tx_alc_scan.launches - n0,
+                     "ms": ms, "keyed_flag": r._keyed,
+                     "tx_freq": r.hw.tx_frequency,
+                     "ctcss": float(r.tx.ctcss_amp)})
+
+    r.set_ptt(True)
+    for _ in range(KEY_PTT_BLOCKS):
+        step("ptt")
+    if hook is not None:
+        hook(r)
+    r.set_ptt(False)
+    step("idle")
+    r.play_cq(cq_path, repeat_secs=B / 48000.0)
+    for _ in CQ_PATTERN:
+        step("cq")
+    r.stop_cq()
+    step("idle")
+    r.enable_tci(0)
+    cl = WsClient(r.tci.port)
+    try:
+        wait_until(lambda: "start;" in cl.texts(), "TCI preamble")
+        cl.text("trx:0,true;")
+        wait_until(lambda: r.tci.tx_client is not None, "TCI trx")
+        for k in range(TCI_TX_BLOCKS):
+            st_ = np.repeat(tci_audio[k * B:(k + 1) * B], 2)  # I = Q
+            cl.send(0x2, tci.pack_stream(0, 48000, st_.astype(np.float32),
+                                         tci.TX_AUDIO_STREAM))
+        wait_until(lambda: r.tci.tx_pending() >= TCI_TX_BLOCKS * B,
+                   "TCI TX audio")
+        for _ in range(TCI_TX_BLOCKS - 1):
+            step("tci")
+        step("tci", r.tci_transmit_once)
+        cl.text("trx:0,false;")
+        wait_until(lambda: r.tci.tx_client is None, "TCI trx release")
+        step("idle")
+    finally:
+        cl.close()
+    r.enable_midi()
+    r.midi_in.feed(bytes([0x90, 0x14, 100]))       # the PTT note
+    step("midi")
+    step("midi")
+    r.midi_in.feed(bytes([0x80, 0x14, 0]))
+    step("idle")
+    bits = {"cts": 0}
+    r.enable_serial_key(cts="PTT when high",
+                        read_bits=lambda: (bits["cts"], 0))
+    bits["cts"] = 1
+    step("serial")
+    step("serial")
+    bits["cts"] = 0
+    step("idle")
+    fav = r.enable_favorites()
+    fav.add("rptr", r.freq_hz, "FM", offset_khz=RPTR_OFFSET_KHZ,
+            tone_hz=RPTR_TONE_HZ)
+    r.tune_favorite(0)
+    step("idle")
+    r.set_ptt(True)
+    step("favourite")
+    step("favourite")
+    r.set_ptt(False)
+    step("idle")
+    return recs
+
+
+def phase_radio_keyed(report: dict, smi: str, rng) -> dict:
+    """Phase 31: the keyed Radio from its live sources on the card, each
+    keyed block against a CPU Radio fed the same mic blocks and commands;
+    kTxAlc once a keyed block and bit-equal to its plain version on one."""
+    n = (KEY_PTT_BLOCKS + 8) * AUDIO_BLOCK
+    voice = voice_like(rng, n, 1, band=(400.0, 2300.0))[0]
+    voice = (0.5 * voice / np.max(np.abs(voice))).astype(np.float32)
+    t = np.arange(CQ_SAMPLES) / CQ_RATE
+    cq = (0.3 * np.sin(2 * np.pi * 800.0 * t)).astype(np.float32)
+    tci_audio = (0.3 * voice_like(rng, TCI_TX_BLOCKS * AUDIO_BLOCK, 1)[0]
+                 / 4.0).astype(np.float32)
+    alc = {}
+
+    def alc_block(r):
+        # one keyed block's ALC arguments: the TX chain's pre-ALC IQ of the
+        # last mic block from the state the chain holds now
+        m = torch.as_tensor(mic_log[-1][2][None], device=r.device)
+        st = r._tx_state
+        _, iq = r.tx.pre_alc(st, m)
+        alc["args"] = r.tx.alc.scan_inputs(st["alc"], iq)[1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vpath = os.path.join(tmp, "voice.wav")
+        wav.write_audio_wav(vpath, voice, 48000.0)
+        cq_path = os.path.join(tmp, "cq.wav")
+        wav.write_audio_wav(cq_path, cq, CQ_RATE)
+        r = keyed_radio(None, f"wav:{vpath}")
+        mic_log = record_calls(r.mic, "get")
+        try:
+            recs = keyed_session(r, cq_path, tci_audio, card=True,
+                                 hook=alc_block)
+            mic = r.mic.stats()
+        finally:
+            r.close()
+        mic_blocks = np.concatenate([o for _, _, o in mic_log])
+        cpu = one_thread(lambda: keyed_radio("cpu", ArrayMic(mic_blocks)))
+        try:
+            cpu_recs = one_thread(lambda: keyed_session(
+                cpu, cq_path, tci_audio, card=False))
+        finally:
+            cpu.close()
+    assert mic["starved"] == 0, mic
+    assert len(recs) == len(cpu_recs)
+    by = {}
+    for g, c in zip(recs, cpu_recs):
+        assert g["source"] == c["source"] and g["keyed"] == c["keyed"], (g, c)
+        src = g["source"]
+        e = by.setdefault(src, {"keyed": 0, "db": [], "ms": [],
+                                "launches": 0})
+        e["launches"] += g["launches"]
+        if g["keyed"]:
+            e["keyed"] += 1
+            e["ms"].append(g["ms"])
+            e["db"].append(snr_db(torch.as_tensor(c["iq"]),
+                                  torch.as_tensor(g["iq"])))
+            assert g["launches"] == 1, (src, g["launches"])
+        else:
+            assert g["launches"] == 0, (src, g["launches"])
+    sources = ("ptt", "cq", "tci", "midi", "serial", "favourite")
+    for src in sources:
+        e = by[src]
+        assert e["keyed"] > 0 and min(e["db"]) >= KEY_TX_DB, (src, e["db"])
+    assert not by["idle"]["keyed"], by["idle"]
+    assert [g["keyed"] for g in recs if g["source"] == "cq"] == CQ_PATTERN
+    assert by["tci"]["keyed"] == TCI_TX_BLOCKS
+    fav = [g for g in recs if g["source"] == "favourite"]
+    assert all(g["tx_freq"] == 9000 + RPTR_OFFSET_KHZ * 1000
+               and g["ctcss"] > 0 for g in fav), fav
+    assert recs[-1]["tx_freq"] == 9000 and recs[-1]["ctcss"] == 0.0
+    ptt = [g for g in recs if g["source"] == "ptt"]
+    ptt_mic = mic_blocks[:len(ptt) * AUDIO_BLOCK]
+    rho, lag = voice_correlation(ptt_mic, np.concatenate(
+        [g["audio"] for g in ptt]))
+    assert rho > RADIO_RHO, (rho, lag)
+    check = check_agc("tx_alc", alc["args"])
+    xs, st, coef, kw = alc["args"]
+    fn = agc_scan.tx_alc_scan
+    t = {"ms": cuda_ms(lambda: fn(*xs, st, coef, **dict(kw, clips=False)),
+                       20),
+         "plain_ms": cuda_ms(lambda: agc_scan.tx_alc_plain(*xs, st, coef,
+                                                           **kw),
+                             1, warmup=0),
+         **agc_bound("tx_alc", *xs[0].shape), "library_ms": None}
+    launches = sum(e["launches"] for e in by.values())
+    print(f"  keyed Radio from its live sources (loopback, C=1; the mic a "
+          f"48 kHz WAV through AudioCapture, the loop paced by its fill): "
+          f"mic captured {mic['captured']}, starved {mic['starved']}, "
+          f"dropped {mic['dropped']}; TX IQ card vs CPU Radio, min dB a "
+          f"source: " + ", ".join(f"{s_} {min(by[s_]['db']):.1f} "
+                                  f"({by[s_]['keyed']} blocks)"
+                                  for s_ in sources)
+          + f"; CQ keyed {CQ_PATTERN}; repeater TX dial "
+          f"{fav[0]['tx_freq']} Hz with CTCSS {RPTR_TONE_HZ} Hz, restored "
+          f"on key-up; voice rho {rho:.4f} at lag {lag}; kTxAlc once a "
+          f"keyed block ({launches} launches), bit-equal to the plain "
+          f"version on one PTT block: {check}", flush=True)
+    print(f"keyed Radio sources timing [{smi}]: ms a keyed block (host "
+          f"clock, run_once or tci_transmit_once alone): " + ", ".join(
+              f"{s_} {np.mean(by[s_]['ms']):.4f}" for s_ in sources)
+          + f"; kTxAlc at [1, {AUDIO_BLOCK}] {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.6f} ms by "
+          f"{t['bound_by']}", flush=True)
+    report["radio_keyed"] = {
+        "sources": {s_: {"keyed_blocks": by[s_]["keyed"],
+                         "cpu_match_min_db": min(by[s_]["db"]),
+                         "keyed_ms": float(np.mean(by[s_]["ms"]))}
+                    for s_ in sources},
+        "mic": mic, "rho": rho, "alc": check, **t}
+    return {"launches": launches, "max_abs_err": check["max_abs_err"], **t}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -4642,6 +5287,20 @@ def main(argv=None) -> int:
                  "replaces": AGC_REPLACES[m], "path": AGC_PATHS[m],
                  "launches": launched[m], **agc_times[m]}
                 for m in AGC_WRAPPERS]
+    torch.cuda.empty_cache()
+    # slice 7b-2: the wide Radio through every user surface (phase 30; the
+    # sim hardware makes its capture, nothing is drawn) and the keyed Radio
+    # from its live sources (phase 31, from a stream of its own)
+    phase_radio_surfaces(report, smi)
+    keyed = phase_radio_keyed(report, smi, np.random.default_rng(SEED + 10))
+    kernels.append({"name": "agc_scan_tx_alc", "route": "cuda",
+                    "source": AGC_SRC, "replaces": AGC_REPLACES["tx_alc"],
+                    "path": "keyed Radio from its live sources (mic, CQ "
+                            "keyer, TCI TX, MIDI PTT, serial key, repeater "
+                            "favourite), C=1",
+                    **{k: keyed[k] for k in ("launches", "max_abs_err", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}})
     report["kernels"] = kernels
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -1,2 +1,3 @@
 """Application layer: config, flags, the radio session, graph services,
-CAT control and the CLI."""
+CAT / TCI control, audio and mic devices, the web UI, MIDI, remote
+operation, stations and the CLI."""

@@ -17,13 +17,13 @@ session's device; the hardware plugin hands over host numpy blocks, which
 ``run_once`` moves to the device (a one-row capture crosses as one row and
 is expanded there for every channel), and audio comes back as host numpy.
 
-External control (rigctld server) attaches to the same state: frequency/
-mode/PTT changes from WSJT-X retune the running chain between blocks.
-
-Not in this module yet (the servers and devices of slice 7b of the port):
-the serial, K4 and TCI CAT servers, the web UI, audio playback and live
-microphone capture, the CQ voice keyer, the serial CW key, MIDI, and the
-favourites / memories / station markers.
+External control (rigctld, the serial Flex-ZZ pty, the K4 TCP server and
+TCI) attaches to the same state: frequency/mode/PTT changes from WSJT-X
+retune the running chain between blocks.  The other user surfaces hang off
+the same loop: audio playback (:meth:`enable_audio_out`, the x2/4/8
+interpolator on the session's device), the live microphone
+(:meth:`enable_mic`), the CQ voice keyer, the serial CW key, the web UI,
+MIDI, and the favourites / memories / station markers.
 """
 
 from __future__ import annotations
@@ -114,8 +114,8 @@ class Radio:
         self.rit_on = False
         self._split_saved = None         # channel-1 state to restore
         self._keyed = False              # current TX state of the loop
-        # the microphone: any object with get(n) -> float32 [n] (the live
-        # capture device, enable_mic, is slice 7b); None = silence
+        # the microphone: an AudioCapture (enable_mic) or any object with
+        # get(n) -> float32 [n]; None = silence
         self.mic = None
         self.tx = None                   # TxChain once enable_tx ran
         self.tx_iq_last = None           # most recent transmitted IQ block
@@ -153,6 +153,7 @@ class Radio:
             self.notch_db = NotchDB()
         if len(self.notch_db):
             self._retune()               # carve restored notches in
+        self.tci = None
         self.rigctl = None
         if rigctl_port is not None:
             from quisk_tpu_torch.app.rigctl import RadioState, RigctlServer
@@ -175,8 +176,32 @@ class Radio:
     def close(self) -> None:
         self.hw.StopSamples()
         self.hw.close()
+        if getattr(self, "player", None) is not None:
+            self.player.stop()
+            self.player = None
         if self.rigctl is not None:
             self.rigctl.stop()
+        if self.tci is not None:
+            self.tci.stop()
+            self.tci = None
+        if getattr(self, "cat_serial", None) is not None:
+            self.cat_serial.close()
+            self.cat_serial = None
+        if getattr(self, "k4", None) is not None:
+            self.k4.stop()
+            self.k4 = None
+        if getattr(self, "webui", None) is not None:
+            self.webui.stop()
+            self.webui = None
+        if getattr(self, "serial_key", None) is not None:
+            self.serial_key.close()
+            self.serial_key = None
+        if getattr(self, "midi_in", None) is not None:
+            self.midi_in.close()
+            self.midi_in = None
+        if self.mic is not None and hasattr(self.mic, "stop"):
+            self.mic.stop()
+            self.mic = None
         if self.settings is not None:
             self.settings.save()
 
@@ -197,7 +222,7 @@ class Radio:
     def flags_dict(self, section: str | None = None,
                    changed_only: bool = False) -> dict:
         """{name: {value, default, type, section, help, choices,
-        changed}} for the config surface."""
+        changed}} for the config surface (CLI + web UI)."""
         from quisk_tpu_torch.app.flags import REGISTRY
         out = {}
         for name, fl in REGISTRY.items():
@@ -247,9 +272,11 @@ class Radio:
         self.hw.ChangeFrequency(int(self.tx_freq_hz), int(self.vfo_hz))
         self._update_tx_tune()
         self._retune()
+        self._sync_cat_state("freq", int(self.freq_hz))
 
     def set_mode(self, mode: str) -> None:
         self.cfg.mode = mode
+        self._sync_cat_state("mode", mode)
         self.channel_modes[0] = mode
         if self.split_rxtx and self.cfg.channels > 1:
             self.channel_modes[1] = mode   # split monitor follows the mode
@@ -544,7 +571,7 @@ class Radio:
         if self.tx is None:
             raise ValueError("no TX chain (call enable_tx first)")
         self.tx = self.tx.set_spot(level)
-        self.spot_level = float(level)
+        self.spot_level = float(level)   # surfaced in the web UI state
 
     def set_ampl_phase(self, ampl: float, phase_deg: float,
                        is_tx: bool = False) -> None:
@@ -650,6 +677,30 @@ class Radio:
             raise ValueError("no TX chain (call enable_tx first)")
         self.sidetone.level = float(np.clip(level, 0.0, 1.0))
 
+    # ---- CQ voice keyer (quisk.py:5917-5933 OnBtnFilePlay source 12:
+    # play the CQ message file with PTT, repeat every N seconds) ----------
+    def play_cq(self, wav_path: str, repeat_secs: float = 0.0) -> None:
+        """Transmit a recorded CQ message: the WAV becomes the mic and
+        PTT keys for its duration; with ``repeat_secs`` the message
+        repeats after that many seconds of listening (file_play_state 2,
+        quisk.py:4020-4021).  Stop with :meth:`stop_cq`."""
+        if self.tx is None:
+            raise ValueError("no TX chain (call enable_tx first)")
+        from quisk_tpu_torch.io import wav as wavio
+        audio, rate = wavio.read_audio_wav(wav_path)
+        if rate != self.cfg.audio_rate:
+            from quisk_tpu_torch.io.ratematch import VarRateResampler
+            rs = VarRateResampler(ratio=rate / self.cfg.audio_rate)
+            audio = rs.process(np.asarray(audio, np.float64))
+        self._cq = {"audio": np.asarray(audio, np.float32), "pos": 0,
+                    "wait": 0,
+                    "repeat_samples": int(repeat_secs
+                                          * self.cfg.audio_rate)}
+
+    def stop_cq(self) -> None:
+        """The file-play button released (TurnOffFilePlay)."""
+        self._cq = None
+
     def add_tone(self, freq_hz: float = 0.0, level: float = 0.1) -> None:
         """The Test 1 button (quisk.py:5939 QS.add_tone): inject a test
         carrier into the RX capture before the chain; 0 turns it off."""
@@ -685,9 +736,9 @@ class Radio:
             except (KeyError, ValueError):
                 pass                     # unknown band id: ignore like quisk
         elif field == "ptt":
-            # latched into the next transmit(); with no TX DSP configured,
-            # key the hardware line directly (quisk.py:6695 SetPTT from
-            # CAT handlers)
+            # latched into the next transmit() like the serial key; with
+            # no TX DSP configured, key the hardware line directly
+            # (quisk.py:6695 SetPTT from CAT handlers)
             self.cat_ptt = bool(value)
             if self.tx is None:
                 self.hw.OnButtonPTT(self.cat_ptt)
@@ -703,9 +754,21 @@ class Radio:
             self.set_rit(float(getattr(st, "rit", 0.0)),
                          on=bool(getattr(st, "rit_on", False)))
 
+    def _sync_cat_state(self, field: str, value) -> None:
+        """Mirror a dial or mode change made from any surface (TCI, the web
+        UI, MIDI, a memory recall) into the shared CAT RadioState, so a CAT
+        client reads the radio back; on_change does not fire.  The
+        reference leaves that state stale after a retune that no CAT
+        client made."""
+        st = (self.rigctl.state if self.rigctl is not None
+              else getattr(self, "_catstate", None))
+        if st is not None:
+            with st.lock:
+                setattr(st, field, value)
+
     def _cat_state(self):
-        """One RadioState shared by every CAT surface so clients see a
-        consistent radio."""
+        """One RadioState shared by every CAT surface (rigctld, serial
+        Flex-ZZ, K4 TCP) so clients see a consistent radio."""
         if self.rigctl is not None:
             return self.rigctl.state
         if getattr(self, "_catstate", None) is None:
@@ -718,6 +781,78 @@ class Radio:
             self._catstate = st
         return self._catstate
 
+    def enable_cat_serial(self, public_name: str):
+        """Serial Flex/Kenwood 'ZZ' CAT port (quisk.py:286): creates a
+        pty symlinked at ``public_name``; pumped each run_once."""
+        from quisk_tpu_torch.app.cat import SerialCat
+
+        self.cat_serial = SerialCat(public_name, self._cat_state(),
+                                    smeter=self.smeter_db)
+        return self.cat_serial
+
+    def enable_k4(self, port: int = 9200) -> int:
+        """Elecraft K4 CAT server over TCP (quisk.py:1256, port 9200)."""
+        from quisk_tpu_torch.app.cat import K4Server
+
+        self.k4 = K4Server(self._cat_state(), port=port,
+                           smeter=self.smeter_db,
+                           cw_pitch=getattr(self.cfg, "cw_pitch", 600.0))
+        return self.k4.start()
+
+    # ---- TCI server (tci.c:608-676 quisk_tci_set_params glue) ------------
+    _TCI_MODES = {"usb": "USB", "lsb": "LSB", "cw": "CWU", "am": "AM",
+                  "fm": "FM", "digu": "DGT_U", "digl": "DGT_L"}
+
+    def enable_tci(self, port: int = 40001) -> int:
+        """Start a TCI 1.4 server bound to this radio: client vfo/
+        modulation/trx commands retune the running chain; RX audio is
+        streamed to listening clients each block; when a client claims
+        ``trx`` its TX_AUDIO_STREAM becomes the mic source for
+        :meth:`tci_transmit_once` (parity tci.c + sound.c:1024/1072)."""
+        from quisk_tpu_torch.app.tci import TciServer, TciState
+
+        st = TciState(on_change=self._on_tci_change)
+        st.vfo[0] = [int(self.freq_hz), int(self.freq_hz)]
+        st.modulation[0] = {v: k for k, v in
+                            self._TCI_MODES.items()}.get(self.cfg.mode, "usb")
+        st.iq_rate = int(self.cfg.sample_rate)
+        st.audio_rate = int(self.cfg.audio_rate)
+        self.tci = TciServer(st, port=port)
+        return self.tci.start()
+
+    def _on_tci_change(self, field, value) -> None:
+        if field == "vfo":
+            r, v, freq = value
+            if r == 0 and v == 0:
+                self.set_frequency(freq)
+        elif field == "modulation":
+            r, m = value
+            if r == 0 and m in self._TCI_MODES:
+                self.set_mode(self._TCI_MODES[m])
+
+    # ---- web UI (a streaming frontend in place of quisk.py GraphScreen
+    # 2094 / WaterfallScreen 2889 / mode row 5061) -------------------------
+    def enable_webui(self, port: int = 0, host: str = "127.0.0.1") -> int:
+        """Serve the canvas spectrum/waterfall page + control WebSocket;
+        each graph refresh streams the channel-0 dB row to every open
+        page.  Returns the bound port."""
+        from quisk_tpu_torch.app.webui import WebUIServer
+
+        self.webui = WebUIServer(self, host=host, port=port)
+        return self.webui.start()
+
+    def tci_transmit_once(self) -> np.ndarray | None:
+        """One TX block keyed by the TCI client: when a client holds
+        ``trx:0,true`` pull its buffered TX audio (mono mix of the stereo
+        stream) as the mic and transmit (tci.c:583 tci_get_mic feeding
+        microphone.c's sound loop)."""
+        if self.tci is None or self.tx is None:
+            return None
+        if not self.tci.state.trx[0]:
+            return None
+        mic = np.real(self.tci.get_mic(self.tx.block)).astype(np.float32)
+        return self.transmit(mic, ptt=True)
+
     # ---- the block loop (the reference's sound-thread iteration) ---------
     def run_once(self) -> np.ndarray | None:
         """Pull one block from hardware through the chain; feeds the
@@ -729,6 +864,11 @@ class Radio:
         mic section runs (mic -> TX chain -> hardware IQ) and the RX audio
         is replaced by sidetone/silence under 5 ms envelopes; on release
         the keyup envelope restores RX click-free (quisk.c:2711-2738)."""
+        if getattr(self, "serial_key", None) is not None:
+            self.serial_key.poll()           # sound.c:898 polls every loop
+        if getattr(self, "midi_in", None) is not None:
+            # the reference reads MIDI every sound loop (quisk.c:5570)
+            self.midi_ctl.dispatch(self.midi_in.poll())
         # hardware housekeeping like the reference's loop (quisk.py:4466
         # HeartBeat ~10 Hz; 5570-5585 ReturnFrequency hardware-initiated
         # tuning, e.g. a front-panel knob)
@@ -787,6 +927,31 @@ class Radio:
             self._zoomcap = (zs, zst)
         if trace is not None:
             self.waterfall.add_row(trace[0])
+            if getattr(self, "webui", None) is not None:
+                zrow = self._zoom_trace() if cap is not None else None
+                if zrow is not None:
+                    # multi-resolution re-capture: a true finer-resolution
+                    # row over the zoom window (wdsp/analyzer.c spans),
+                    # not an interpolation of base-FFT pixels
+                    self.webui.send_spectrum(zrow[0], zrow[1], zrow[2],
+                                             self.smeter_db(), raw=True)
+                else:
+                    # trace rows are rebinned to graph.pixels display bins
+                    df = self.cfg.sample_rate / self.graph.pixels
+                    self.webui.send_spectrum(
+                        self.vfo_hz - 0.5 * self.cfg.sample_rate, df,
+                        trace[0], self.smeter_db())
+                if self.cfg.channels > 1:
+                    # narrow per-sub-RX panels (quisk.c:4868)
+                    self.webui.send_multirx(self.vfo_hz,
+                                            self.cfg.sample_rate,
+                                            trace, self.offsets)
+        if getattr(self, "player", None) is not None:
+            self.play(audio)
+        if self.tci is not None:
+            self.tci.send_audio(self.mix_stereo(audio))
+        if getattr(self, "cat_serial", None) is not None:
+            self.cat_serial.process()    # poll the ZZ pty (quisk.py:6593)
         rec = getattr(self, "_record", None)
         if rec is not None:              # live record taps (sound.c:255-421)
             if rec["kind"] == "iq":
@@ -839,6 +1004,48 @@ class Radio:
             return np.zeros((self.chain.channels, 0), np.float32)
         return np.concatenate(outs, axis=-1)
 
+    # ---- audio playback (sound.c:504-618 + quisk.c:2663-2682) ------------
+    def enable_audio_out(self, sink="null", block: int = 1024):
+        """Attach a paced playback path: stereo-routed RX audio is
+        interpolated x2/4/8 to ``cfg.playback_rate`` (quisk.c:2663-2682)
+        and pushed through an :class:`~quisk_tpu_torch.io.audio_out.AudioPlayer`
+        whose fill servo heals capture/playback clock skew.  ``sink`` is
+        'null' (clocked), 'wav:<path>', 'aplay', or a Sink object.  The
+        interpolator and its history live on the session's device, built
+        once here."""
+        from quisk_tpu_torch.io.audio_out import AudioPlayer, make_sink
+        ratio = self.cfg.playback_rate / self.cfg.audio_rate
+        L = int(round(ratio))
+        if abs(ratio - L) > 1e-9 or L not in (1, 2, 4, 8):
+            raise ValueError("playback_rate must be audio_rate x 1/2/4/8")
+        self._play_interp = None
+        if L > 1:
+            from quisk_tpu_torch.ops.resample import Interpolator
+            self._play_interp = Interpolator.create(
+                L, self.chain.block_audio, fs_out=self.cfg.playback_rate,
+                complex_state=False, device=self.device)
+            self._play_interp_state = self._play_interp.init_state(1)
+        if isinstance(sink, str):
+            sink = make_sink(sink, self.cfg.playback_rate)
+        self.player = AudioPlayer(sink, self.cfg.playback_rate,
+                                  latency_ms=self.cfg.latency_ms,
+                                  block=block)
+        self.player.start()
+
+    def play(self, audio: np.ndarray) -> None:
+        """Route one [C, B] audio block to the player (mono mix of the
+        stereo pair for now — sinks are 1-channel).  With L > 1 the mix
+        crosses to the device for the interpolator and comes back."""
+        stereo = self.mix_stereo(audio)
+        mono = 0.5 * (stereo[0] + stereo[1])
+        if self._play_interp is not None:
+            x = torch.as_tensor(mono[None].astype(np.float32),
+                                device=self.device)
+            self._play_interp_state, up = self._play_interp(
+                self._play_interp_state, x)
+            mono = up[0].cpu().numpy()
+        self.player.push(mono)
+
     # ---- multi-RX audio routing / outputs --------------------------------
     def mix_stereo(self, audio: np.ndarray) -> np.ndarray:
         """Route per-channel audio [C, N] to a stereo pair [2, N] by each
@@ -866,11 +1073,41 @@ class Radio:
             return None
         return self.graph.waterfall[-1][1:]
 
+    # ---- serial CW key / PTT (is_key_down.c; polled at sound.c:898) ------
+    def enable_serial_key(self, port: str = "", cts: str = "None",
+                          dsr: str = "None", read_bits=None) -> str:
+        """Poll a serial port's CTS/DSR modem bits as CW key and/or PTT
+        each block (quisk_open_key parity).  Returns '' or the open error
+        message, like the reference."""
+        from quisk_tpu_torch.app.cw import SerialKey
+
+        self.serial_key = SerialKey(port, cts=cts, dsr=dsr,
+                                    read_bits=read_bits)
+        return self.serial_key.error
+
+    def enable_midi(self, source: str | int | None = None,
+                    ptt_toggle: bool = False, default_map: bool = True):
+        """Attach a MIDI control surface (quisk.c:5570 control_midi +
+        midi_handler.py): ``source`` is a rawmidi device path
+        (/dev/midi*), an open fd, or None (feed bytes via
+        ``radio.midi_in.feed`` — the test path).  Events are polled once
+        per :meth:`run_once` iteration like the reference's sound loop
+        and drive PTT/CW/tune/band/sliders through the controller's
+        bindings.  Returns the :class:`MidiRadioController` so callers
+        can rebind."""
+        from quisk_tpu_torch.app.midi import MidiInput, MidiRadioController
+
+        self.midi_in = MidiInput(source)
+        self.midi_ctl = MidiRadioController(self, ptt_toggle=ptt_toggle)
+        if default_map:
+            self.midi_ctl.bind_default()
+        return self.midi_ctl
+
     # ---- transmit -------------------------------------------------------
     def enable_tx(self, tx_rate: float | None = None,
                   sidetone_level: float = 0.3, **tx_kwargs) -> None:
         """Attach a transmit chain + PTT controller.  TX then runs inside
-        :meth:`run_once` (full duplex, keyed by PTT/CW/VOX/CAT) and is
+        :meth:`run_once` (full duplex, keyed by PTT/CW/VOX/CAT/TCI) and is
         also callable directly via :meth:`transmit`."""
         from quisk_tpu_torch.app.cw import KeyEnvelope, Sidetone
         from quisk_tpu_torch.tx import TxChain, TxChainConfig
@@ -915,8 +1152,14 @@ class Radio:
     def transmit(self, mic_block: np.ndarray, ptt: bool = False,
                  cw_key: bool = False) -> np.ndarray | None:
         """One TX block: mic [block] float -> IQ [block_tx] complex, or
-        None when not keyed (VOX/PTT/failsafes decide)."""
-        ptt = ptt or self.cat_ptt        # T 1 from a CAT client
+        None when not keyed (VOX/PTT/failsafes decide).  A configured
+        serial key (enable_serial_key) ORs into ptt/cw_key, like the
+        reference's quisk_serial_key_down/quisk_serial_ptt globals."""
+        if getattr(self, "serial_key", None) is not None:
+            k, p = self.serial_key.poll()
+            cw_key = cw_key or k
+            ptt = ptt or p
+        ptt = ptt or self.cat_ptt        # TX;/ZZTX1; from a CAT client
         vox = self.vox.process(mic_block) and self.vox_enabled
         if not self.ptt.process(ptt=ptt, cw_key=cw_key, vox=vox):
             return None
@@ -954,7 +1197,8 @@ class Radio:
         self.manual_ptt = bool(pressed)
 
     def set_cw_key(self, down: bool) -> None:
-        """A host-driven CW key (remote/MIDI keyers enter here)."""
+        """A host-driven CW key (remote/MIDI keyers enter here; hardware
+        keys come via enable_serial_key)."""
         self.manual_key = bool(down)
 
     def set_vox(self, enabled: bool, threshold: float | None = None,
@@ -967,6 +1211,19 @@ class Radio:
         if hold_secs is not None:
             self.vox.hold_blocks = max(1, int(round(
                 hold_secs * self.cfg.audio_rate / self.tx.block)))
+
+    def enable_mic(self, source="silence", rate: float | None = None,
+                   latency_ms: float = 500.0) -> None:
+        """Attach a live microphone (sound.c:1034-1094 capture side):
+        ``source`` is 'silence', 'wav:<path>', 'arecord', an array, or a
+        Source object; a capture thread paces it at ``rate`` (default the
+        radio's audio rate) and :meth:`run_once` pulls one TX block per
+        loop while keyed."""
+        from quisk_tpu_torch.io.audio_in import AudioCapture, make_source
+        rate = float(rate or self.cfg.audio_rate)
+        self.mic = AudioCapture(make_source(source, rate), rate,
+                                max_latency_ms=latency_ms)
+        self.mic.start()
 
     def _poll_tx_keys(self):
         """Combine every key source into this iteration's TX decision:
@@ -981,11 +1238,43 @@ class Radio:
             mic = np.zeros(self.tx.block, np.float32)
         cw_key = self.manual_key
         ptt = self.manual_ptt or self.cat_ptt
+        sk = getattr(self, "serial_key", None)
+        if sk is not None:               # already polled this iteration
+            cw_key = cw_key or sk.key_down
+            ptt = ptt or sk.ptt
+        if self.tci is not None and self.tci.state.trx[0]:
+            # a TCI client holds trx: its buffered TX audio is the mic
+            # (tci.c:583 tci_get_mic feeding the mic section)
+            ptt = True
+            mic = np.real(self.tci.get_mic(self.tx.block)).astype(np.float32)
+        cq = getattr(self, "_cq", None)
+        if cq is not None:
+            # CQ voice keyer (quisk.py:5926 file_play_source 12: play the
+            # message file keyed, wait file_play_repeat seconds, repeat)
+            B = self.tx.block
+            if cq["wait"] > 0:           # between repeats: unkeyed
+                cq["wait"] -= B
+                if cq["wait"] <= 0:
+                    cq["pos"] = 0
+            else:
+                seg = cq["audio"][cq["pos"]:cq["pos"] + B]
+                cq["pos"] += B
+                if len(seg) < B:
+                    seg = np.pad(seg, (0, B - len(seg)))
+                    if cq["repeat_samples"] > 0:
+                        cq["wait"] = cq["repeat_samples"]
+                    else:
+                        self._cq = None  # one-shot: done
+                mic = seg.astype(np.float32)
+                ptt = True
         vox = self.vox.process(mic) and self.vox_enabled
         keyed = self.ptt.process(ptt=ptt, cw_key=cw_key, vox=vox)
         if keyed != self._keyed:
             self.hw.OnButtonPTT(keyed)   # T/R switch (quisk.py:6695)
+            self._apply_repeater_offset(keyed)   # FM repeater shift+CTCSS
             self._keyed = keyed
+            if getattr(self, "webui", None) is not None:
+                self.webui.send_state()  # live PTT indicator on the page
         return keyed, cw_key, mic
 
     def _duplex_audio(self, audio: np.ndarray, keyed: bool, cw_key: bool,
@@ -1065,9 +1354,10 @@ class Radio:
         re-capture of the view (mix to the view center, lowpass decimate,
         re-FFT) whose rows genuinely resolve ``decim`` times finer.
 
-        Thread-safe by STAGING: this may be called from a server thread,
-        so it only records the request; the radio loop applies it between
-        blocks."""
+        Thread-safe by STAGING: this may be called from the web UI's
+        server thread, so it only records the request; the radio loop
+        applies it between blocks (web UI writes must never race
+        run_once)."""
         self._zoom_req = (float(zoom),
                           float(center_hz) if center_hz is not None
                           else None)
@@ -1135,3 +1425,120 @@ class Radio:
         row = np.interp(xi, f, db).astype(np.float32)
         self._zoomcap = (zs, (st[0], st[1], zs.an.reset(st[2])))
         return lo, span / px, row
+
+    # ---- favorites / memory stations / station markers -------------------
+    # (ConfigFavorites quisk.py:1757, memoryState 3825 + 6228-6264,
+    # StationScreen 2598 — see quisk_tpu_torch/app/stations.py)
+    def enable_favorites(self, path: str | None = None):
+        """Attach the favorites table (persisted at ``path``, the
+        reference's quisk_favorites.txt).  With no path the table lives
+        in memory only."""
+        from quisk_tpu_torch.app.stations import Favorites
+        self.favorites = Favorites(path)
+        return self.favorites
+
+    @property
+    def memories(self):
+        """The memory-station bank, restored from Settings
+        ('memoryState'-equivalent persistence)."""
+        if getattr(self, "_memories", None) is None:
+            from quisk_tpu_torch.app.stations import MemoryBank
+            saved = (self.settings.get_state().get("memories")
+                     if self.settings is not None else None)
+            self._memories = MemoryBank(saved)
+        return self._memories
+
+    def save_memory(self) -> None:
+        """The MemSave button (quisk.py:6228): snapshot the current
+        station (freq, band, VFO, TX offset, mode), sorted, replacing an
+        entry at the same frequency."""
+        self.memories.save(self.freq_hz, getattr(self, "band", ""),
+                           self.vfo_hz, self.tx_freq_hz - self.vfo_hz,
+                           self.cfg.mode)
+        self._persist_memories()
+
+    def next_memory(self) -> None:
+        """The MemNext button (quisk.py:6241): cycle to the next memory
+        above the current frequency (wrapping), restoring band/mode/VFO
+        like the reference (band change goes through set_band)."""
+        s = self.memories.next_after(self.freq_hz)
+        if s is None:
+            return
+        self._recall_memory(s)
+
+    def recall_memory(self, freq_hz: float) -> None:
+        """The memory popup menu (quisk.py:6213): tune to the memory at
+        ``freq_hz`` exactly."""
+        s = self.memories.at_freq(freq_hz)
+        if s is not None:
+            self._recall_memory(s)
+
+    def _recall_memory(self, s) -> None:
+        if s.band and s.band != getattr(self, "band", None):
+            # restore into the band state then switch (quisk.py:6251-6253)
+            if not hasattr(self, "band_state"):
+                self.band_state = {}
+            self.band_state[s.band] = [s.vfo, s.freq, s.mode]
+            self.set_band(s.band)
+        else:
+            self.set_mode(s.mode)
+            self.set_frequency(float(s.freq))
+
+    def delete_memory(self) -> None:
+        """The MemDelete button (quisk.py:6254): drop the entry at the
+        current frequency."""
+        if self.memories.delete(self.freq_hz):
+            self._persist_memories()
+
+    def _persist_memories(self) -> None:
+        if self.settings is not None:
+            self.settings.update_state(memories=self.memories.to_list())
+
+    def station_markers(self) -> list[dict]:
+        """The StationScreen rows (quisk.py:2646-2675) for the current
+        display span: favorites + memories + DX-cluster spots as data
+        (the web UI draws them under the spectrum)."""
+        from quisk_tpu_torch.app.stations import station_markers
+        half = 0.5 * self.cfg.sample_rate
+        dx = getattr(getattr(self, "dx_cluster", None), "spots", None)
+        return station_markers(self.vfo_hz - half, self.vfo_hz + half,
+                               favorites=getattr(self, "favorites", None),
+                               memories=(self._memories
+                                         if getattr(self, "_memories", None)
+                                         else None),
+                               dx_spots=dx)
+
+    def tune_favorite(self, index: int) -> None:
+        """'Tune to' on a favorites row (quisk.py:1804): frequency and
+        mode from the table."""
+        e = self.favorites.entries[index]
+        if e.mode:
+            self.set_mode(e.mode.upper())
+        self.set_frequency(float(e.freq_hz))
+
+    def _apply_repeater_offset(self, keyed: bool) -> None:
+        """FM repeater TX shift + CTCSS tone from the favorites table on
+        key transitions (quisk.py:6677-6693: RepeaterDict lookup of the
+        TX dial rounded to 1 kHz, Hardware.RepeaterOffset + QS.set_ctcss;
+        restored on key-up)."""
+        if getattr(self, "favorites", None) is None or self.tx is None:
+            return
+        if self.cfg.mode not in ("FM", "DGT_FM"):
+            return
+        if keyed:
+            freq = ((int(self.tx_freq_hz) + 500) // 1000) * 1000
+            ent = self.favorites.repeater_dict().get(freq)
+            if ent is None:
+                return
+            offset, tone = ent
+            self.hw.RepeaterOffset(offset)
+            self.tx = self.tx.set_ctcss(tone,
+                                        self.tx_config.fm_deviation_hz,
+                                        self.tx_config.mic_band[1])
+            self._rptr_active = True
+        elif getattr(self, "_rptr_active", False):
+            self.hw.RepeaterOffset(0)
+            self.tx = self.tx.set_ctcss(self.tx_config.ctcss_hz,
+                                        self.tx_config.fm_deviation_hz,
+                                        self.tx_config.mic_band[1])
+            self._rptr_active = False

@@ -295,12 +295,18 @@ def test_radio_without_a_card_raises(monkeypatch):
 
 
 def test_slice_7b_methods_are_not_defined():
+    """The slice 7b surfaces are all there now: the port's Radio has every
+    method and property of the reference's but _analytics_ctx (the
+    reference's CPU pinning of its analytics, a TPU workaround)."""
+    ref = {n for n in dir(JRadio) if not n.startswith("__")}
+    ours = {n for n in dir(Radio) if not n.startswith("__")}
+    assert ref - ours == {"_analytics_ctx"}
     for name in ("enable_cat_serial", "enable_k4", "enable_tci",
                  "tci_transmit_once", "enable_webui", "enable_audio_out",
                  "play", "enable_mic", "play_cq", "enable_serial_key",
                  "enable_midi", "enable_favorites", "save_memory",
                  "station_markers"):
-        assert not hasattr(Radio, name), name
+        assert callable(getattr(Radio, name)), name
 
 
 # --------------------------------------------------------- RIT and split
