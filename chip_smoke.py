@@ -24,8 +24,12 @@ the PFB receiver fed by the ingest plane (a live wideband UDP stream
 through the native pump straight into DeviceFeed's pinned slot) and a
 live HiQSDR Radio, the Radio session (a 48 kS/s user's session, 1024
 channels at 960 kS/s on one capture, and a keyed TX->RX loopback session)
-and the CLI.  Last, the
-AGC / ALC recurrence kernel that the TX chain and the WDSP AGC run on.
+and the CLI.  Then the
+AGC / ALC recurrence kernel that the TX chain and the WDSP AGC run on,
+and the Radio through every user surface.  Last, the parallel paths on
+torch.distributed: the channel-sharded flagship, the halo-exchange
+receiver and the time-sharded PFB step in a world of one over NCCL, and
+dcn_worker's jobs as two ranks sharing the card.
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit; build every kernel in
@@ -312,11 +316,53 @@ Phases, each fatal on failure:
     > 0.7 over the PTT leg; each source's ms a keyed block, kTxAlc's at
     [1, 2048] with its plain version and bound.
 
+32. the parallel paths (slice 6) in a world of one over NCCL
+    (init_world on a file store, make_mesh), at full width: the flagship
+    (RxChainConfig(sample_rate=960000, channels=1024, audio_block=2048,
+    agc=True, fused_frontend=True), parallel.scaling.flagship) through
+    shard_over_channels (its twin at 2 channels) and make_sharded_step for
+    8 blocks of seeded noise: equal to the unsharded RxChain.step on the
+    same blocks (bit for bit, else within 1e-6 of the peak), one kernel #1
+    launch a block, no collective call, the kernel against its plain
+    version on the path's input; both steps timed in turns; timeshard_rx
+    (SSB) of 1024 channels x 2^17 samples at 192 kS/s on a (chan, time) =
+    (1, 1) mesh: no collective call, > 90 dB a row against the unsharded
+    route (the port's NCO and FIR ops streamed in 4 blocks) and on rows 0-1
+    against the float64 oracle, timed (Msps); the same in FM on an FM
+    station (the discriminator's halo, the de-emphasis one-pole's
+    all_gather over NCCL): one all_gather, > 60 dB on rows 0 and 1023
+    against the float64 oracle from sample 512; the time-sharded PFB step at
+    K=4096, B=4096*8192 (kernel #4, MixedDemod over mode quarters) for 3
+    blocks of pfb_signal: one kernel #4 launch and one all_to_all a block
+    and nothing else, equal to the unsharded OversampledPFB + MixedDemod
+    (within 1e-5 of the peak; spectra rtol 1e-5), kernel #4 against its
+    plain version, timed in turns with the unsharded pipeline and the PFB
+    receiver's kernel route, its stages split; measure_scaling (weak and
+    strong) and measure_timeshard at one rank; the unsharded flagship
+    step timed before init_world, with the group and after
+    destroy_process_group (what the process group costs the step);
+33. the rehearsal across ranks: python -m quisk_tpu_torch.parallel.
+    dcn_worker as 2 processes over gloo, both on this card (NCCL refuses
+    two ranks on one card; the exchanged tensors go through the host):
+    the flagship job (192 kS/s, 256, AGC off, fused) at 1024 channels, 512
+    a rank, stitched and held to the unsharded card chain within 1e-4 of
+    the peak after the first 1024 samples, one kernel #1 launch a block on
+    each rank, no collective, and kernel #1 at the job's (B, T, d) against
+    its plain version on the job's input; timeshard_rx over 2 ranks in time against
+    phase 32's world of one (within 1e-5 of the peak); the PFB job at the
+    receiver's width (K=4096, 33 554 432 samples a block, 3 blocks) against
+    the unsharded card pipeline on its last block (audio within 1e-4 of the
+    peak, spectra rtol 1e-3), one kernel #4 launch, one ring message and
+    one all_to_all a block on each rank; each rank's ms a step, its
+    collectives and the bytes it staged through the host.
+
 Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
 20-23 from another (SEED + 3) and phase 20's edges from another (SEED +
 7), phases 24-28 from another (SEED + 4), phase 24b's capture from
 another (SEED + 8), phase 29 from another (SEED + 5) and its edges from
-another (SEED + 6), phase 31 from another (SEED + 10).
+another (SEED + 6), phase 31 from another (SEED + 10), phase 32's
+flagship from another (SEED + 11) and its PFB input from another (SEED +
+12).
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
@@ -326,7 +372,8 @@ kernel's plain mode has one for the flagship, one for the NFM path and one
 for the flagship fed through DeviceFeed, kernels #4 and #6 one for the PFB
 receiver and one for it fed by the ingest plane, the PLL kernel and the
 AGC / ALC kernel one for each mode and one more for TxALC on the keyed
-Radio's live sources);
+Radio's live sources, kernels #1 and #4 one more each for the
+channel-sharded flagship and the time-sharded PFB step of phase 32);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--out FILE`` also writes every number measured to FILE as JSON.
@@ -343,6 +390,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -5153,6 +5201,563 @@ def phase_radio_keyed(report: dict, smi: str, rng) -> dict:
     return {"launches": launches, "max_abs_err": check["max_abs_err"], **t}
 
 
+# --------------------------------- slice 6: parallel/ on torch.distributed
+PAR_BLOCKS = 8
+PAR_TOL = 1e-6             # sharded vs unsharded flagship, of the peak, if
+                           # not bit-equal
+TS_SAMPLES = 1 << 17       # the halo-exchange receive path's capture
+TS_FS = 192000.0
+TS_TUNE_HZ = 10000.0
+TS_STREAM = 4              # blocks of the unsharded streaming route
+TS_TOL = 1e-5              # 2 ranks vs 1 rank, of the peak
+TS_FM_TUNE_HZ = -30000.0   # the FM call: tests/test_torch_parallel.py's
+TS_FM_BAND = (-6250.0, 6250.0)     # station, channel filter and floor
+TS_FM_TAPS = 1025
+TS_FM_DB = 60.0            # vs float64 from TS_FM_SKIP (the first nonzero
+TS_FM_SKIP = 512           # x * conj(x) underflows float32 to a signed 0)
+PAR_PFB_BLOCKS = 3
+PAR_PFB_TOL = 1e-5         # sharded PFB step vs unsharded, of the peak
+REH_BLOCKS = 6             # the rehearsal's flagship job (192 kS/s, 256)
+REH_SKIP = 1024            # the 1025-tap filter's warm-up (FM on ~0 input)
+REH_TOL = 1e-4             # rehearsal vs unsharded card chain, of the peak
+REH_PFB_RATE = 96000.0     # the worker's PFB job (thirds USB/AM/FM)
+REH_TIMEOUT_S = 300
+
+
+def stepper(ch, s0, stepf, xs):
+    """fn() for cuda_ms: one step of ``stepf(ch, state, x)``, the state
+    carried, the blocks xs[0] and xs[1] in turn."""
+    box = {"st": s0, "i": 0}
+
+    def f():
+        box["st"], _ = stepf(ch, box["st"], xs[box["i"] % 2])
+        box["i"] += 1
+    return f
+
+
+def unsharded_ms(chain, xs) -> list[float]:
+    """The unsharded RxChain.step's ms/block by events, two turns."""
+    f = stepper(chain, chain.init_state(), lambda c, s, x: c.step(s, x), xs)
+    return [cuda_ms(f, iters=20, warmup=2) for _ in range(2)]
+
+
+def sharded_flagship(dev, smi: str, mesh, chain, xs) -> dict:
+    """The flagship through make_sharded_step at full width against the
+    unsharded RxChain.step on the same blocks xs."""
+    from quisk_tpu_torch.parallel.scaling import flagship
+    from quisk_tpu_torch.parallel.shard import (make_sharded_step,
+                                                shard_over_channels,
+                                                twin_count)
+
+    twin = flagship(twin_count(C), sample_rate=FS, audio_block=AUDIO_BLOCK,
+                    device=dev)
+    step = make_sharded_step(chain, mesh, C)
+    chain_l = shard_over_channels(chain, mesh, C, twin)
+    st_l = shard_over_channels(chain.init_state(), mesh, C,
+                               twin.init_state())
+    st, ref = chain.init_state(), []
+    for x in xs:
+        st, a = chain.step(st, x)
+        ref.append(a)
+    reset_launches()
+    mesh.counts.clear()
+    got = []
+    for x in xs:
+        st_l, a = step(chain_l, st_l, x)
+        got.append(a)
+    torch.cuda.synchronize()
+    n, calls = launches(), dict(mesh.counts)
+    print(f"  sharded flagship, world of one over NCCL: {PAR_BLOCKS} "
+          f"blocks, front launches {n}, collective calls {calls}",
+          flush=True)
+    assert n == {"plain": PAR_BLOCKS, "gained": 0, "nb": 0}, n
+    assert not calls, calls
+    for a in got:
+        assert a.shape == (C, AUDIO_BLOCK) and bool(torch.isfinite(a).all())
+    equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+    peak = max(float(b.abs().max()) for b in ref)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    print(f"  sharded vs unsharded RxChain.step: bit-equal {equal}, max "
+          f"abs diff {err:.3e} (peak {peak:.3f})", flush=True)
+    assert equal or err <= PAR_TOL * peak, err
+    kern = check_plain_mode(chain_l.front, xs[:2])
+    turns = {"unsharded": stepper(chain, chain.init_state(),
+                                  lambda c, s, x: c.step(s, x), xs),
+             "sharded": stepper(chain_l, st_l, step, xs)}
+    ms = {"unsharded": [], "sharded": []}
+    for which in ("unsharded", "sharded", "sharded", "unsharded"):
+        ms[which].append(cuda_ms(turns[which], iters=20, warmup=2))
+    print(f"  timing [{smi}] ms/block (events, in turns): unsharded "
+          f"{ms['unsharded']}, sharded {ms['sharded']}", flush=True)
+    return {"blocks": PAR_BLOCKS, "launches": n["plain"],
+            "collectives": calls, "bit_equal": equal, "max_abs_diff": err,
+            "max_abs_err": kern["max_abs_err"], "ms": ms}
+
+
+def timeshard_stream(iq, stages, bp) -> torch.Tensor:
+    """The unsharded route of timeshard_rx's SSB: the port's NCO and FIR
+    ops streamed over the capture in TS_STREAM blocks (the channel filter
+    by overlap-save), 2 * Re of the filter's output."""
+    from quisk_tpu_torch.ops.fir import make_fir
+    from quisk_tpu_torch.ops.nco import NCO
+
+    Cn, N = iq.shape
+    Bb = N // TS_STREAM
+    nco = NCO.create(TS_TUNE_HZ, TS_FS, Bb, Cn, device=iq.device)
+    ops, b = [], Bb
+    for taps, d in stages:
+        ops.append(make_fir(taps, b, decim=d, device=iq.device))
+        b //= d
+    ops.append(OverlapSaveFIR.create(bp, b, device=iq.device))
+    states = [nco.init_state(Cn)] + [op.init_state(Cn) for op in ops]
+    out = []
+    for k in range(TS_STREAM):
+        states[0], y = nco(states[0], iq[:, k * Bb:(k + 1) * Bb])
+        for i, op in enumerate(ops):
+            states[i + 1], y = op(states[i + 1], y)
+        out.append(2.0 * y.real)
+    return torch.cat(out, dim=-1)
+
+
+def ts_oracle_db(iq_row: np.ndarray, audio_row: np.ndarray, stages,
+                 bp) -> float:
+    bb = dsp.mix_down(iq_row.astype(np.complex128), TS_TUNE_HZ, TS_FS)
+    for taps, d in stages:
+        _, bb = dsp.fir_stream(bb, taps, decim=d)
+    _, bb = dsp.fir_stream(bb, bp)
+    return float(dsp.snr_db(2.0 * np.real(bb), audio_row, skip=64))
+
+
+def snr_rows_t(ref: torch.Tensor, got: torch.Tensor) -> float:
+    """The lowest row SNR in dB of got against ref (float64)."""
+    ref, got = ref.double(), got.double()
+    err = (got - ref).pow(2).mean(dim=-1)
+    return float((10 * torch.log10(ref.pow(2).mean(dim=-1) / err)).min())
+
+
+def sharded_timeshard(dev, smi: str, mesh) -> dict:
+    """timeshard_rx over a (chan, time) = (1, 1) mesh at full width against
+    the unsharded streaming route and, on rows 0-1, the float64 oracle."""
+    from quisk_tpu_torch.parallel.scaling import (seeded_capture,
+                                                  timeshard_filters)
+    from quisk_tpu_torch.parallel.timeshard import timeshard_rx
+
+    stages, bp = timeshard_filters()
+    iq = seeded_capture(C, TS_SAMPLES, dev)      # the rehearsal's capture
+
+    def run():
+        return timeshard_rx(iq, mesh, sample_rate=TS_FS, tune_hz=TS_TUNE_HZ,
+                            stages=stages, bp_taps=bp, mode="ssb")
+
+    mesh.counts.clear()
+    audio = run()
+    torch.cuda.synchronize()
+    calls = dict(mesh.counts)
+    assert audio.shape == (C, TS_SAMPLES // 4), audio.shape
+    assert bool(torch.isfinite(audio).all()) and not calls, calls
+    ref = timeshard_stream(iq, stages, bp)
+    rows = snr_rows_t(ref, audio)
+    oracle = [ts_oracle_db(iq[c].cpu().numpy(), audio[c].cpu().numpy(),
+                           stages, bp) for c in (0, 1)]
+    print(f"  timeshard_rx, world of one, {C} x {TS_SAMPLES} at "
+          f"{TS_FS / 1e3:.0f} kS/s: vs the streaming route min row "
+          f"{rows:.1f} dB; rows 0-1 vs float64 {oracle[0]:.1f}, "
+          f"{oracle[1]:.1f} dB; collective calls {calls}", flush=True)
+    assert rows > CPU_MATCH_DB and min(oracle) > CPU_MATCH_DB
+    ms = cuda_ms(run, iters=5, warmup=1)
+    msps = C * TS_SAMPLES / (ms * 1e-3) / 1e6
+    ms_stream = cuda_ms(lambda: timeshard_stream(iq, stages, bp), iters=3,
+                        warmup=1)
+    print(f"  timing [{smi}]: timeshard_rx {ms:.4f} ms for "
+          f"{TS_SAMPLES / TS_FS * 1e3:.1f} ms of signal = {msps:.1f} Msps "
+          f"in; the streaming route {ms_stream:.4f} ms", flush=True)
+    fm = timeshard_fm(dev, smi, mesh, stages)
+    return {"audio": audio, "min_row_db": rows, "oracle_db": oracle,
+            "ms": ms, "msps": msps, "stream_ms": ms_stream, "fm": fm}
+
+
+def timeshard_fm(dev, smi: str, mesh, stages) -> dict:
+    """timeshard_rx in FM mode at full width on the same mesh (the
+    discriminator's halo and the de-emphasis one-pole's all_gather over
+    NCCL): an FM station on every row, rows 0 and C-1 against the float64
+    oracle from TS_FM_SKIP."""
+    from quisk_tpu_torch.parallel.timeshard import timeshard_rx
+
+    voice = sources.voice_like(TS_FS, TS_SAMPLES, band=(300.0, 2700.0),
+                               seed=6)
+    row = sources.fm_signal(voice, TS_FS, deviation_hz=2500.0,
+                            carrier_hz=TS_FM_TUNE_HZ)
+    iq = torch.as_tensor(row.astype(np.complex64), device=dev).expand(
+        C, TS_SAMPLES).contiguous()
+    bp = design.bandpass_analytic(TS_FM_TAPS, *TS_FM_BAND, TS_FS / 4)
+
+    def run():
+        return timeshard_rx(iq, mesh, sample_rate=TS_FS,
+                            tune_hz=TS_FM_TUNE_HZ, stages=stages, bp_taps=bp,
+                            mode="fm", fm_deviation_hz=2500.0)
+
+    mesh.counts.clear()
+    audio = run()
+    torch.cuda.synchronize()
+    calls = dict(mesh.counts)
+    assert audio.shape == (C, TS_SAMPLES // 4), audio.shape
+    assert bool(torch.isfinite(audio).all())
+    assert calls == {"all_gather": 1}, calls
+    bb = dsp.mix_down(row.astype(np.complex128), TS_FM_TUNE_HZ, TS_FS)
+    for taps, d in stages:
+        _, bb = dsp.fir_stream(bb, taps, decim=d)
+    _, bb = dsp.fir_stream(bb, bp)
+    ref = dsp.fm_demod(bb, TS_FS / 4, 2500.0)
+    db = [float(dsp.snr_db(ref, audio[c].cpu().numpy(), skip=TS_FM_SKIP))
+          for c in (0, C - 1)]
+    ms = cuda_ms(run, iters=3, warmup=1)
+    print(f"  timeshard_rx FM, world of one, {C} x {TS_SAMPLES}: rows 0 and "
+          f"{C - 1} vs float64 from sample {TS_FM_SKIP}: {db[0]:.1f}, "
+          f"{db[1]:.1f} dB; collective calls {calls}; {ms:.4f} ms "
+          f"[{smi}]", flush=True)
+    assert min(db) > TS_FM_DB, db
+    return {"oracle_db": db, "collectives": calls, "ms": ms}
+
+
+def sharded_pfb(dev, smi: str, mesh) -> dict:
+    """The time-sharded PFB step at the PFB receiver's width (kernel #4)
+    against the unsharded OversampledPFB + MixedDemod on the same blocks."""
+    from quisk_tpu_torch.ops.channelizer import OversampledPFB
+    from quisk_tpu_torch.ops.demod import MixedDemod
+    from quisk_tpu_torch.parallel.comm import all_to_all
+    from quisk_tpu_torch.parallel.pfbshard import (make_sharded_pfb_step,
+                                                   shard_pfb_inputs)
+
+    K, B = PFB_K, PFB_K * PFB_MULT
+    pfb = OversampledPFB.create(K, B, pallas_poly=True, device=dev)
+
+    def demod(k):
+        return MixedDemod.create(quarters(k), sample_rate=PFB_RATE,
+                                 channels=k, device=dev)
+
+    dm = demod(K)
+    step = make_sharded_pfb_step(pfb, dm, mesh)
+    dm_l, st_l = shard_pfb_inputs(dm, mesh, K, demod(2))
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+    xs = [pfb_signal(dev, gen, K, B, b) for b in range(PAR_PFB_BLOCKS)]
+    h, st, refs = pfb.init_state(1), dm.init_state(K), []
+    for x in xs:
+        h, ch = pfb(h, x)
+        st, a = dm(st, ch.reshape(K, -1))
+        refs.append((a, (ch.real * ch.real + ch.imag * ch.imag).mean(-1)[0]))
+    del ch
+    hist = pfb.init_state(1)
+    reset_launches()
+    mesh.counts.clear()
+    outs = []
+    for x in xs:
+        st_l, hist, a, sp = step(dm_l, st_l, hist, x)
+        outs.append((a[0], sp[0]))
+    torch.cuda.synchronize()
+    n, calls = pfb_launches()["poly_os"], dict(mesh.counts)
+    print(f"  sharded PFB step, world of one over NCCL, K={K}, "
+          f"B={B}: {PAR_PFB_BLOCKS} blocks, kernel #4 launches {n}, "
+          f"collective calls {calls}", flush=True)
+    assert n == PAR_PFB_BLOCKS and calls == {"all_to_all": PAR_PFB_BLOCKS}
+    equal, worst = True, 0.0
+    for (a, sp), (ra, rsp) in zip(outs, refs):
+        assert a.shape == ra.shape and bool(torch.isfinite(a).all())
+        equal = equal and torch.equal(a, ra) and torch.equal(sp, rsp)
+        worst = max(worst, float((a - ra).abs().max() / ra.abs().max()))
+        assert torch.allclose(sp, rsp, rtol=PAR_PFB_TOL, atol=0.0)
+    print(f"  sharded vs unsharded: bit-equal {equal}, max abs diff "
+          f"{worst:.3e} of the peak", flush=True)
+    assert worst <= PAR_PFB_TOL, worst
+    v = pk.pfb_poly_oversampled(pfb.init_state(1), xs[0], pfb.h_poly)
+    vp = pk.pfb_poly_oversampled_plain(pfb.init_state(1), xs[0], pfb.h_poly)
+    poly_err = float((v - vp).abs().max())
+    assert poly_err <= POLY_TOL * float(vp.abs().max()), poly_err
+    del v, vp
+
+    # timing in turns: the sharded step, the unsharded torch-op pipeline
+    # of the same ops, the PFB receiver's kernel route; then the stages
+    rx = pfb_pipeline(dev, PFB_MULT, True)
+    box = {"sh": (st_l, hist), "un": (pfb.init_state(1), dm.init_state(K)),
+           "rx": rx.init_state(1)}
+
+    def sharded():
+        s, hh = box["sh"]
+        s, hh, _, _ = step(dm_l, s, hh, xs[0])
+        box["sh"] = (s, hh)
+
+    def unsharded():
+        hh, s = box["un"]
+        hh, ch = pfb(hh, xs[0])
+        s, _ = dm(s, ch.reshape(K, -1))
+        box["un"] = (hh, s)
+
+    def kernel_route():
+        box["rx"], _ = rx(box["rx"], xs[0])
+
+    runs = {"sharded": sharded, "unsharded": unsharded,
+            "receiver kernel route": kernel_route}
+    ms = {k: [] for k in runs}
+    for which in ("sharded", "unsharded", "receiver kernel route",
+                  "receiver kernel route", "unsharded", "sharded"):
+        ms[which].append(cuda_ms(runs[which], iters=5, warmup=1))
+    del rx, box
+    hist0 = pfb.init_state(1)
+    _, vv = pfb.poly_stacked(hist0, xs[0])
+    yr, yi = pfb.idft_ri(vv[:, :, 0], vv[:, :, 1])
+    zr, zi = pfb.rotate_tm(yr, yi)
+    z = all_to_all(mesh, "dev", torch.complex(zr, zi), 2, 1)
+    chm = z.transpose(1, 2).reshape(K, -1)
+    stages = {
+        "poly (kernel #4)": cuda_ms(
+            lambda: pfb.poly_stacked(hist0, xs[0]), 5),
+        "idft": cuda_ms(lambda: pfb.idft_ri(vv[:, :, 0], vv[:, :, 1]), 5),
+        "rotate": cuda_ms(lambda: pfb.rotate_tm(yr, yi), 5),
+        "corner turn (all_to_all)": cuda_ms(
+            lambda: all_to_all(mesh, "dev", torch.complex(zr, zi), 2, 1), 5),
+        "demod": cuda_ms(lambda: dm_l(dm_l.init_state(K), chm), 5),
+        "spec": cuda_ms(lambda: (z.real * z.real + z.imag * z.imag
+                                 ).mean(dim=1), 5),
+    }
+    print(f"  timing [{smi}] ms/block (events, in turns): "
+          + "; ".join(f"{k} {v}" for k, v in ms.items()), flush=True)
+    print("  sharded step's stages (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()), flush=True)
+    return {"blocks": PAR_PFB_BLOCKS, "launches": n, "collectives": calls,
+            "bit_equal": equal, "max_rel_diff": worst, "poly_err": poly_err,
+            "ms": ms, "stages_ms": stages}
+
+
+def phase_parallel_world1(report: dict, smi: str) -> dict:
+    """Phase 32: the parallel paths in a world of one over NCCL at full
+    width, and the scaling harness there."""
+    import torch.distributed as dist
+    from quisk_tpu_torch.parallel import comm, scaling
+
+    dev = torch.device(DEVICE)
+    chain = scaling.flagship(C, sample_rate=FS, audio_block=AUDIO_BLOCK,
+                             device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    xs = [torch.randn((C, chain.block_in), dtype=torch.complex64,
+                      generator=gen, device=dev) for _ in range(PAR_BLOCKS)]
+    # the unsharded step before the process group exists, with it (the
+    # sharded step's turns) and after it is destroyed: what the group
+    # itself costs the step
+    group_ms = {"before init_world": unsharded_ms(chain, xs)}
+    tmp = tempfile.mkdtemp()
+    dev = comm.init_world(f"file://{tmp}/store", 0, 1, "nccl",
+                          device=DEVICE)
+    try:
+        out = {"flagship": sharded_flagship(dev, smi,
+                                            comm.make_mesh(device=dev),
+                                            chain, xs)}
+        del xs[2:]
+        torch.cuda.empty_cache()
+        mesh2 = comm.make_mesh((1, 1), ("chan", "time"), device=dev)
+        out["timeshard"] = sharded_timeshard(dev, smi, mesh2)
+        torch.cuda.empty_cache()
+        out["pfb"] = sharded_pfb(dev, smi, comm.make_mesh(axis="dev",
+                                                          device=dev))
+        torch.cuda.empty_cache()
+        kw = dict(device_counts=(1,), channels_per_device=C, sample_rate=FS,
+                  audio_block=AUDIO_BLOCK, iters=5, device=dev)
+        weak = scaling.measure_scaling(**kw)
+        strong = scaling.measure_scaling(weak=False, **kw)
+        ts_sps, ts_ms = scaling.measure_timeshard(mesh2, C, TS_SAMPLES)
+        # one rank on one card: silicon of its own
+        assert not any(p.shared for p in weak + strong)
+        assert all(scaling.efficiency_within_bound(p) for p in weak + strong)
+        print(scaling.format_table(weak, f"weak, world of one over NCCL, "
+                                         f"{smi}"), flush=True)
+        print(scaling.format_table(strong, f"strong, world of one over "
+                                           f"NCCL, {smi}"), flush=True)
+        print(f"scaling (timeshard, world of one over NCCL, {smi}): "
+              f"{C} ch x {TS_SAMPLES} samples  {ts_sps / 1e6:.1f} Msps  "
+              f"{ts_ms:.4f} ms", flush=True)
+        out["scaling"] = {"weak": [dataclasses.asdict(p) for p in weak],
+                          "strong": [dataclasses.asdict(p) for p in strong],
+                          "timeshard_msps": ts_sps / 1e6,
+                          "timeshard_ms": ts_ms}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    group_ms["with the group"] = out["flagship"]["ms"]["unsharded"]
+    group_ms["after destroy_process_group"] = unsharded_ms(chain, xs)
+    del chain, xs
+    print(f"  timing [{smi}] the unsharded flagship step, ms/block (events): "
+          + "; ".join(f"{k} {v}" for k, v in group_ms.items()), flush=True)
+    out["group_ms"] = group_ms
+    report["parallel_world1"] = {k: ({kk: vv for kk, vv in v.items()
+                                      if kk != "audio"}
+                                     if isinstance(v, dict) else v)
+                                 for k, v in out.items()}
+    return out
+
+
+def run_workers(outdir: str, job: list[str], nproc: int = 2) -> list[dict]:
+    """``nproc`` ranks of dcn_worker over gloo, all on this card; their npz
+    files by pid.  A rank that fails or outlasts REH_TIMEOUT_S is fatal."""
+    os.makedirs(outdir)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "quisk_tpu_torch.parallel.dcn_worker",
+         "--pid", str(pid), "--nproc", str(nproc),
+         "--init", f"file://{outdir}/store", "--backend", "gloo",
+         "--device", DEVICE, "--outdir", outdir, "--timeout", "240", *job],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=REH_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"worker {pid} of {job}:\n{out}"
+    name = {"--pfb": "pfb", "--timeshard": "ts"}.get(job[0], "audio")
+    return [dict(np.load(os.path.join(outdir, f"{name}_p{pid}.npz")))
+            for pid in range(nproc)]
+
+
+def rehearsal_line(label: str, parts: list[dict]) -> dict:
+    from quisk_tpu_torch.parallel.dcn_worker import COUNT_KINDS as kinds
+
+    ranks = []
+    for pid, z in enumerate(parts):
+        ms = z["step_ms"].tolist()
+        counts = dict(zip(kinds, z["counts"].tolist()))
+        ranks.append({"step_ms": ms, "counts": counts,
+                      "launches": dict(zip(("front", "pfb_poly"),
+                                           z["launches"].tolist()))})
+        print(f"  rehearsal {label}, rank {pid}: ms a step {ms} (the first "
+              f"builds its kernels), collectives {counts}, launches "
+              f"{ranks[-1]['launches']}", flush=True)
+    return {"ranks": ranks}
+
+
+def phase_parallel_rehearsal(report: dict, smi: str, ts_world1) -> dict:
+    """Phase 33: dcn_worker as 2 processes over gloo, both on this card
+    (NCCL refuses two ranks on one card), each job's rows stitched and
+    held to the unsharded chain on the card.  A rehearsal of the
+    multi-rank logic: the exchanged tensors go through the host, so its
+    times are not scaling."""
+    from quisk_tpu_torch.ops.channelizer import OversampledPFB
+    from quisk_tpu_torch.ops.demod import MixedDemod
+    from quisk_tpu_torch.parallel.scaling import flagship
+
+    dev = torch.device(DEVICE)
+    tmp = tempfile.mkdtemp()
+    out = {}
+    try:
+        # the flagship chain job, 512 channels a rank
+        t0 = time.perf_counter()
+        parts = run_workers(os.path.join(tmp, "chain"),
+                            ["--channels", str(C), "--blocks",
+                             str(REH_BLOCKS)])
+        wall = time.perf_counter() - t0
+        chain = flagship(C, sample_rate=192000.0, audio_block=256,
+                         agc=False, device=dev)
+        n = REH_BLOCKS * chain.block_in
+        tunes = chain.tune_base.cpu().numpy()
+        modes = chain.demod.mode.cpu().numpy()
+        iq = np.stack([sources.station_iq(int(modes[c]), 192000.0, n,
+                                          float(tunes[c]), seed=c)
+                       for c in range(C)])
+        _, ref = chain.process(chain.init_state(), torch.as_tensor(
+            iq, device=dev))
+        ref = ref.cpu().numpy()
+        # kernel #1 at the ranks' (B, T, d), against its plain version
+        B = chain.block_in
+        kern = check_plain_mode(chain.front, [
+            iq[:, k * B:(k + 1) * B].astype(np.complex64) for k in (0, 1)])
+        rows = sorted(parts, key=lambda z: int(z["lo"]))
+        assert [(int(z["lo"]), int(z["hi"])) for z in rows] == [
+            (0, C // 2), (C // 2, C)]
+        got = np.concatenate([z["audio"] for z in rows])
+        err = float(np.abs(got[:, REH_SKIP:] - ref[:, REH_SKIP:]).max()
+                    / np.abs(ref[:, REH_SKIP:]).max())
+        print(f"  rehearsal flagship job: {C} channels over 2 ranks on "
+              f"{DEVICE} (gloo), {REH_BLOCKS} blocks; stitched vs the "
+              f"unsharded card chain {err:.3e} of the peak after "
+              f"{REH_SKIP} samples; {wall:.1f} s wall", flush=True)
+        assert err <= REH_TOL, err
+        out["flagship"] = {**rehearsal_line("flagship", parts),
+                           "max_rel_err": err, "wall_s": wall,
+                           "kernel_max_abs_err": kern["max_abs_err"],
+                           "kernel_snr_db": kern["snr_db"]}
+        assert all(r["launches"]["front"] == REH_BLOCKS
+                   for r in out["flagship"]["ranks"])
+        assert all(not any(r["counts"].values())
+                   for r in out["flagship"]["ranks"])
+        del chain, iq, ref, got, kern
+
+        # timeshard_rx across 2 ranks in time
+        t0 = time.perf_counter()
+        parts = run_workers(os.path.join(tmp, "ts"),
+                            ["--timeshard", "--channels", str(C), "--block",
+                             str(TS_SAMPLES), "--blocks", "3"])
+        wall = time.perf_counter() - t0
+        rows = sorted(parts, key=lambda z: int(z["t0"]))
+        got = torch.as_tensor(np.concatenate([z["audio"] for z in rows],
+                                             axis=-1), device=dev)
+        ref = ts_world1
+        err = float((got - ref).abs().max() / ref.abs().max())
+        print(f"  rehearsal timeshard_rx: {C} x {TS_SAMPLES} over 2 ranks "
+              f"in time vs the world of one: {err:.3e} of the peak; "
+              f"{wall:.1f} s wall", flush=True)
+        assert err <= TS_TOL, err
+        out["timeshard"] = {**rehearsal_line("timeshard", parts),
+                            "max_rel_err": err, "wall_s": wall}
+        del got
+
+        # the PFB job at the receiver's width
+        K, B = PFB_K, PFB_K * PFB_MULT
+        t0 = time.perf_counter()
+        parts = run_workers(os.path.join(tmp, "pfb"),
+                            ["--pfb", "--channels", str(K), "--block",
+                             str(B), "--blocks", str(PAR_PFB_BLOCKS)])
+        wall = time.perf_counter() - t0
+        fam = [int(Mode.USB), int(Mode.AM), int(Mode.FM)]
+        pfb = OversampledPFB.create(K, B, pallas_poly=True, device=dev)
+        dm = MixedDemod.create([fam[(3 * i) // K] for i in range(K)],
+                               sample_rate=REH_PFB_RATE, channels=K,
+                               device=dev)
+        rng = np.random.default_rng(7)              # the worker's capture
+        h, st = pfb.init_state(1), dm.init_state(K)
+        for _ in range(PAR_PFB_BLOCKS):
+            xh = (rng.standard_normal((1, B))
+                  + 1j * rng.standard_normal((1, B))).astype(np.complex64)
+            h, ch = pfb(h, torch.as_tensor(xh, device=dev))
+            st, a = dm(st, ch.reshape(K, -1))
+        sp = (ch.real * ch.real + ch.imag * ch.imag).mean(-1)[0]
+        rows = sorted(parts, key=lambda z: int(z["lo"]))
+        got = torch.as_tensor(np.concatenate([z["audio"] for z in rows]),
+                              device=dev)
+        got_sp = torch.as_tensor(np.concatenate([z["spec"] for z in rows]),
+                                 device=dev)
+        err = float((got - a).abs().max() / a.abs().max())
+        sp_err = float(((got_sp - sp).abs() / sp).max())
+        print(f"  rehearsal PFB job: K={K}, B={B} over 2 ranks in time, "
+              f"{PAR_PFB_BLOCKS} blocks; last block vs the unsharded card "
+              f"pipeline: audio {err:.3e} of the peak, spec {sp_err:.3e} "
+              f"relative; {wall:.1f} s wall", flush=True)
+        assert err <= REH_TOL and sp_err <= PFB_SPEC_RTOL, (err, sp_err)
+        out["pfb"] = {**rehearsal_line("PFB", parts), "max_rel_err": err,
+                      "spec_rel_err": sp_err, "wall_s": wall,
+                      "width": {"K": K, "B": B}}
+        for r in out["pfb"]["ranks"]:
+            c = r["counts"]
+            assert r["launches"]["pfb_poly"] == PAR_PFB_BLOCKS
+            assert c["all_to_all"] == PAR_PFB_BLOCKS and c["send"] == \
+                PAR_PFB_BLOCKS and not c["all_gather"] and \
+                not c["all_reduce"], c
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"rehearsal [{smi}]: 2 gloo ranks on one card, the exchanged "
+          f"tensors staged through the host; not scaling", flush=True)
+    report["parallel_rehearsal"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -5301,6 +5906,23 @@ def main(argv=None) -> int:
                     **{k: keyed[k] for k in ("launches", "max_abs_err", "ms",
                                              "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}})
+    # slice 6: parallel/ on torch.distributed: phase 32 in a world of one
+    # over NCCL at full width (its inputs from streams of their own, SEED +
+    # 11 and + 12), phase 33 the rehearsal across 2 ranks on this card
+    par = phase_parallel_world1(report, smi)
+    kernels += [
+        {**plain, "path": "channel-sharded flagship (make_sharded_step), "
+                          "world of one over NCCL",
+         "launches": par["flagship"]["launches"],
+         "max_abs_err": par["flagship"]["max_abs_err"], **times},
+        {**poly_os, "path": "time-sharded PFB step (make_sharded_pfb_step), "
+                            "world of one over NCCL",
+         "launches": par["pfb"]["launches"],
+         "max_abs_err": par["pfb"]["poly_err"], **ptimes["poly_os"]},
+    ]
+    phase_parallel_rehearsal(report, smi, par["timeshard"]["audio"])
+    del par
+    torch.cuda.empty_cache()
     report["kernels"] = kernels
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
