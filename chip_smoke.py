@@ -26,10 +26,11 @@ live HiQSDR Radio, the Radio session (a 48 kS/s user's session, 1024
 channels at 960 kS/s on one capture, and a keyed TX->RX loopback session)
 and the CLI.  Then the
 AGC / ALC recurrence kernel that the TX chain and the WDSP AGC run on,
-and the Radio through every user surface.  Last, the parallel paths on
+and the Radio through every user surface.  Then the parallel paths on
 torch.distributed: the channel-sharded flagship, the halo-exchange
 receiver and the time-sharded PFB step in a world of one over NCCL, and
-dcn_worker's jobs as two ranks sharing the card.
+dcn_worker's jobs as two ranks sharing the card.  Last, the five example
+programs a user runs first (examples/torch_*.py).
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit; build every kernel in
@@ -331,7 +332,10 @@ Phases, each fatal on failure:
     against the float64 oracle, timed (Msps); the same in FM on an FM
     station (the discriminator's halo, the de-emphasis one-pole's
     all_gather over NCCL): one all_gather, > 60 dB on rows 0 and 1023
-    against the float64 oracle from sample 512; the time-sharded PFB step at
+    against the float64 oracle from sample 512; and in AM on an AM station
+    25 kHz up (the envelope difference's halo, the 0.995 one-pole's
+    all_gather): one all_gather, > 80 dB on rows 0 and 1023 against the
+    float64 oracle from sample 64; the time-sharded PFB step at
     K=4096, B=4096*8192 (kernel #4, MixedDemod over mode quarters) for 3
     blocks of pfb_signal: one kernel #4 launch and one all_to_all a block
     and nothing else, equal to the unsharded OversampledPFB + MixedDemod
@@ -355,6 +359,29 @@ Phases, each fatal on failure:
     peak, spectra rtol 1e-3), one kernel #4 launch, one ring message and
     one all_to_all a block on each rank; each rank's ms a step, its
     collectives and the bytes it staged through the host.
+34. the five example programs (examples/torch_*.py), each through its
+    ``run`` at its default size on the card, every launch counter from 0
+    before it and read after it, with its wall time, its ms a block on the
+    host clock where it has blocks, and its own checks: the receiver (4
+    channels at 960 kS/s, unfused: no kernel launch) against the same
+    program on the CPU, its WAV rows read back (SSB, AM, CW >= 60 dB from
+    block 3, NFM by RMS within 0.5 dB); the channelizer (K=256, 8 blocks
+    of 262 144 samples: kernels #4 and #6 8 launches each, the stations on
+    their channels) against the CPU program (audio >= 80 dB overall and on
+    the three station channels), both kernels against their plain versions
+    on its second block and timed there; the transceiver (loopback SSB and
+    FM with CTCSS, PureSignal, the live Radio session): kTxAlc once a TX
+    step, IMD better by > 12 dB, the live session's S-meter above -40 dB
+    and rho > 0.7 against the mic blocks it took, a 1 kHz tone through its
+    SSB loopback at 1 kHz, kTxAlc bit-equal to its plain version on the
+    SSB loopback's block-3 ALC input and timed at [1, 2048]; the wideband
+    survey (K=128, 6 blocks through a paced UDP stream and the wideband
+    plugin): no sequence error, the three stations on top, kernel #4 6
+    launches, held to its plain version on the first block and timed
+    there; station automation: the plugin's fan-out counters; then the
+    zoom engaged on the card (tpu_zoom_smoke.py's check): a 192 kHz Radio,
+    tones 80 Hz apart, set_zoom(64, vfo + 40040), the re-capture engaged
+    on the card and its row resolving both tones within two of its bins.
 
 Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
 20-23 from another (SEED + 3) and phase 20's edges from another (SEED +
@@ -362,7 +389,8 @@ Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
 another (SEED + 8), phase 29 from another (SEED + 5) and its edges from
 another (SEED + 6), phase 31 from another (SEED + 10), phase 32's
 flagship from another (SEED + 11) and its PFB input from another (SEED +
-12).
+12).  Phase 34 draws from none: each program makes its input from its own
+seeds, as a user running it gets.
 
 Every check of the front kernel prints the launcher's tile for its shape
 (O, R, P) on a line of its own.  Prints, before the last line, the card's
@@ -373,7 +401,9 @@ for the flagship fed through DeviceFeed, kernels #4 and #6 one for the PFB
 receiver and one for it fed by the ingest plane, the PLL kernel and the
 AGC / ALC kernel one for each mode and one more for TxALC on the keyed
 Radio's live sources, kernels #1 and #4 one more each for the
-channel-sharded flagship and the time-sharded PFB step of phase 32);
+channel-sharded flagship and the time-sharded PFB step of phase 32, and
+one for each kernel on each example program's path: #4 and #6 on the
+channelizer, #4 on the survey, kTxAlc on the transceiver);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--out FILE`` also writes every number measured to FILE as JSON.
@@ -544,13 +574,23 @@ def add_impulses(rng, x: np.ndarray, every: int = 7, n: int = 5,
             x[c, p] += amp * np.exp(1j * rng.uniform(0, 2 * np.pi))
 
 
+def wrappers() -> tuple:
+    """Every kernel wrapper with a launch counter."""
+    return (fused_tune_decimate, fused_tune_decimate_gained,
+            fused_tune_decimate_nb, pk.pfb_poly_oversampled,
+            pk.pfb_poly_critical, pk.pfb_demod_call, pll.pll_sync_am,
+            pll.pll_fm, agc_scan.tx_alc_scan, agc_scan.wcp_scan,
+            agc_scan.hang_scan)
+
+
 def reset_launches() -> None:
-    for fn in (fused_tune_decimate, fused_tune_decimate_gained,
-               fused_tune_decimate_nb, pk.pfb_poly_oversampled,
-               pk.pfb_poly_critical, pk.pfb_demod_call, pll.pll_sync_am,
-               pll.pll_fm, agc_scan.tx_alc_scan, agc_scan.wcp_scan,
-               agc_scan.hang_scan):
+    for fn in wrappers():
         fn.launches = 0
+
+
+def all_launches() -> dict:
+    """Each wrapper's count, by name."""
+    return {fn.__name__: fn.launches for fn in wrappers()}
 
 
 def launches() -> dict:
@@ -2091,6 +2131,27 @@ def bound(nbytes: float, flops: float) -> dict:
             "gflop": flops / 1e9}
 
 
+def poly_os_bound(pfb, hist, x) -> dict:
+    """Kernel #4's bound: hist and x read, the taps read, v written; two
+    operations a tap, an output and a plane."""
+    K, P = pfb.n_chan, pfb.P
+    n_out = x.numel() * 2 // K
+    return bound((hist.numel() + x.numel()) * 8 + P * K * 4
+                 + n_out * 2 * K * 4, n_out * K * 2 * P * 2)
+
+
+def demod_bound(pipe, bb, dm) -> dict:
+    """Kernel #6's bound: bytes as they are (bb and the carry read, the
+    carry written, twiddles, basis and masks, audio and power written);
+    operations as the function needs them (a 128-point FFT per row, 5 N
+    log2 N, plus ~50 per sample for twiddle, demodulators and power)."""
+    K = pipe.K1 * pipe.K2
+    rows = bb.numel() // (2 * 128)
+    nbytes = (bb.numel() + 2 * dm.numel() + 4 * K + 2 * 128 * 128
+              + rows * 128 + K) * 4
+    return bound(nbytes, rows * (5 * 128 * 7 + 128 * 50))
+
+
 def phase_timing_pfb(report: dict, smi: str, rx: dict, crit: dict) -> dict:
     pipe, ref, xs = rx["pipe"], rx["ref"], rx["xs"]
     K, P = PFB_K, pipe.pfb.P
@@ -2117,14 +2178,12 @@ def phase_timing_pfb(report: dict, smi: str, rx: dict, crit: dict) -> dict:
         "stage 2 + demod (kernel #6)": cuda_ms(
             lambda: pk.pfb_demod_call(bb, dm, *consts, **kw), 10),
     }
-    hist_n = hist.shape[-1]
     times = {
         "poly_os": {
             "ms": stages["poly (kernel #4)"],
             "plain_ms": cuda_ms(
                 lambda: pk.pfb_poly_oversampled_plain(hist, x, h), 3, 1),
-            **bound((hist_n + B) * 8 + P * K * 4 + n_out * 2 * K * 4,
-                    n_out * K * 2 * P * 2)},
+            **poly_os_bound(pipe.pfb, hist, x)},
         "poly_crit": {
             "ms": cuda_ms(lambda: pk.pfb_poly_critical(
                 crit["hist"], crit["x"], crit["op"].h_poly), 10),
@@ -2133,15 +2192,13 @@ def phase_timing_pfb(report: dict, smi: str, rx: dict, crit: dict) -> dict:
             **bound((crit["hist"].shape[-1] + B) * 8 + P * K * 4
                     + PFB_MULT * 2 * K * 4, PFB_MULT * K * 2 * P * 2)},
     }
-    # kernel #6: bytes as they are; operations as the function needs them
-    # (a 128-point FFT per row, 5 N log2 N, plus ~50 per sample for twiddle,
-    # demodulators and power).  Beside it: the bytes its two launches move
-    # (the fix-up rereads and rewrites the AM and FM positions' audio), and
+    # kernel #6 beside its bound: the bytes its two launches move (the
+    # fix-up rereads and rewrites the AM and FM positions' audio), and
     # torch.fft.ifft over the same complex rows, the transform alone: not
     # the same function, and the port never calls it
     rows = n_out * K1
-    nbytes = (bb.numel() + 2 * dm.numel() + 4 * K + 2 * 128 * 128
-              + rows * 128 + K) * 4
+    dbound = demod_bound(pipe, bb, dm)
+    nbytes = dbound["mbytes"] * 1e6
     am_fm = int(((consts[4] + consts[5]) > 0).sum())
     b4 = bb.view(n_out, 2, K1, 128)
     zc = torch.complex(b4[:, 0], b4[:, 1]).reshape(rows, 128)
@@ -2161,7 +2218,7 @@ def phase_timing_pfb(report: dict, smi: str, rx: dict, crit: dict) -> dict:
         "launch_ms": launch_ms,
         "plain_ms": cuda_ms(
             lambda: pk.pfb_demod_plain(bb, dm, *consts, **kw), 3, 1),
-        **bound(nbytes, rows * (5 * 128 * 7 + 128 * 50)),
+        **dbound,
         "moved_mb": (nbytes + 2 * n_out * am_fm * 4) / 1e6,
         "ifft_ms": fft_ms}
     print(f"timing of the PFB receiver [{smi}]:", flush=True)
@@ -5215,6 +5272,9 @@ TS_FM_BAND = (-6250.0, 6250.0)     # station, channel filter and floor
 TS_FM_TAPS = 1025
 TS_FM_DB = 60.0            # vs float64 from TS_FM_SKIP (the first nonzero
 TS_FM_SKIP = 512           # x * conj(x) underflows float32 to a signed 0)
+TS_AM_TUNE_HZ = 25000.0    # the AM call: tests/torch_parallel_ranks.py's
+TS_AM_BAND = (-4000.0, 4000.0)     # station and channel filter, and
+TS_AM_DB = 80.0            # tests/test_torch_parallel.py's floor
 PAR_PFB_BLOCKS = 3
 PAR_PFB_TOL = 1e-5         # sharded PFB step vs unsharded, of the peak
 REH_BLOCKS = 6             # the rehearsal's flagship job (192 kS/s, 256)
@@ -5372,8 +5432,10 @@ def sharded_timeshard(dev, smi: str, mesh) -> dict:
           f"{TS_SAMPLES / TS_FS * 1e3:.1f} ms of signal = {msps:.1f} Msps "
           f"in; the streaming route {ms_stream:.4f} ms", flush=True)
     fm = timeshard_fm(dev, smi, mesh, stages)
+    am = timeshard_am(dev, smi, mesh, stages)
     return {"audio": audio, "min_row_db": rows, "oracle_db": oracle,
-            "ms": ms, "msps": msps, "stream_ms": ms_stream, "fm": fm}
+            "ms": ms, "msps": msps, "stream_ms": ms_stream, "fm": fm,
+            "am": am}
 
 
 def timeshard_fm(dev, smi: str, mesh, stages) -> dict:
@@ -5416,6 +5478,48 @@ def timeshard_fm(dev, smi: str, mesh, stages) -> dict:
           f"{db[1]:.1f} dB; collective calls {calls}; {ms:.4f} ms "
           f"[{smi}]", flush=True)
     assert min(db) > TS_FM_DB, db
+    return {"oracle_db": db, "collectives": calls, "ms": ms}
+
+
+def timeshard_am(dev, smi: str, mesh, stages) -> dict:
+    """timeshard_rx in AM mode at full width on the same mesh (the
+    envelope difference's one-sample halo and the 0.995 one-pole's
+    all_gather over NCCL): an AM station on every row, rows 0 and C-1
+    against the float64 oracle."""
+    from quisk_tpu_torch.parallel.timeshard import timeshard_rx
+
+    voice = sources.voice_like(TS_FS, TS_SAMPLES, band=(300.0, 2700.0),
+                               seed=8)
+    row = sources.am_signal(voice / np.max(np.abs(voice)), TS_FS,
+                            carrier_hz=TS_AM_TUNE_HZ)
+    iq = torch.as_tensor(row.astype(np.complex64), device=dev).expand(
+        C, TS_SAMPLES).contiguous()
+    bp = design.bandpass_analytic(TS_FM_TAPS, *TS_AM_BAND, TS_FS / 4)
+
+    def run():
+        return timeshard_rx(iq, mesh, sample_rate=TS_FS,
+                            tune_hz=TS_AM_TUNE_HZ, stages=stages, bp_taps=bp,
+                            mode="am")
+
+    mesh.counts.clear()
+    audio = run()
+    torch.cuda.synchronize()
+    calls = dict(mesh.counts)
+    assert audio.shape == (C, TS_SAMPLES // 4), audio.shape
+    assert bool(torch.isfinite(audio).all())
+    assert calls == {"all_gather": 1}, calls
+    bb = dsp.mix_down(row.astype(np.complex128), TS_AM_TUNE_HZ, TS_FS)
+    for taps, d in stages:
+        _, bb = dsp.fir_stream(bb, taps, decim=d)
+    _, bb = dsp.fir_stream(bb, bp)
+    ref = dsp.am_demod(bb, pole=0.995, gain=1.0)
+    db = [float(dsp.snr_db(ref, audio[c].cpu().numpy(), skip=64))
+          for c in (0, C - 1)]
+    ms = cuda_ms(run, iters=3, warmup=1)
+    print(f"  timeshard_rx AM, world of one, {C} x {TS_SAMPLES}: rows 0 and "
+          f"{C - 1} vs float64 from sample 64: {db[0]:.1f}, {db[1]:.1f} dB; "
+          f"collective calls {calls}; {ms:.4f} ms [{smi}]", flush=True)
+    assert min(db) > TS_AM_DB, db
     return {"oracle_db": db, "collectives": calls, "ms": ms}
 
 
@@ -5758,6 +5862,360 @@ def phase_parallel_rehearsal(report: dict, smi: str, ts_world1) -> dict:
     return out
 
 
+# ----------------------------------------- slice 8: the example programs
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+EX_RX_SECONDS = 1.0        # each program at its own default size
+EX_PFB_K = 256
+EX_SURVEY_K, EX_SURVEY_BLOCKS = 128, 6
+EX_CH_DB = 80.0            # channelizer audio, card vs CPU program
+EX_BEAT_BLOCKS = 6         # a 1 kHz tone through the SSB loopback
+EX_ALC_CALL = 3            # the TX step whose ALC input is held: the SSB
+                           # loopback's block 3
+EX_FAN_OUT = {"tune_count": 4, "relay": 5, "heartbeats": 1,
+              "interlock": False}
+ZOOM_TONES_HZ = (40000.0, 40080.0)      # 80 Hz apart, tpu_zoom_smoke.py's
+ZOOM_FACTOR = 64.0
+ZOOM_BLOCKS = 6
+
+
+def example(name: str):
+    """examples/<name>.py as a module."""
+    import importlib
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    return importlib.import_module(name)
+
+
+@contextlib.contextmanager
+def logged_calls(cls, name: str, keep):
+    """Patch cls.name so that each call appends keep(self, args, result) to
+    the list this yields; restored on exit."""
+    fn, log = getattr(cls, name), []
+
+    def logged(self, *a):
+        out = fn(self, *a)
+        log.append(keep(self, a, out))
+        return out
+    setattr(cls, name, logged)
+    try:
+        yield log
+    finally:
+        setattr(cls, name, fn)
+
+
+def quietly(fn):
+    """fn() with its standard output dropped: a program's second run."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def warm_ms(fn) -> float:
+    """A program's ms a block on a second run on the card (host clock,
+    its block loop), past the first run's one-time costs."""
+    res = quietly(fn)
+    return res["loop_s"] / res["blocks"] * 1e3
+
+
+def timed_program(fn, label: str, smi: str):
+    """fn() with every launch counter from 0: (result, wall s, counts)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in all_launches().items() if v}
+    print(f"  {label}: wall {wall:.3f} s [{smi}], kernel launches "
+          f"{counts or 'none'}", flush=True)
+    return out, wall, counts
+
+
+def ex_receiver(tmp: str, smi: str) -> dict:
+    """examples/torch_demo_receiver.py at its default size on the card and
+    on the CPU: WAV rows as tests/test_torch_examples.py holds them."""
+    trx = example("torch_demo_receiver")
+    res, wall, counts = timed_program(
+        lambda: trx.run(DEVICE, EX_RX_SECONDS, os.path.join(tmp, "rx")),
+        "receiver (4 channels at 960 kS/s, unfused)", smi)
+    assert not counts, counts              # the reference's unfused front
+    assert bool(np.isfinite(res["audio"]).all())
+    one_thread(lambda: quietly(lambda: trx.run(
+        "cpu", EX_RX_SECONDS, os.path.join(tmp, "rx_cpu"))))
+    tail = slice(FEATURED_FROM_BLOCK * AUDIO_BLOCK, None)
+    rows = {}
+    for name, _, mode in res["stations"]:
+        got, _ = wav.read_audio_wav(os.path.join(tmp, "rx",
+                                                 trx.wav_name(name)))
+        ref, _ = wav.read_audio_wav(os.path.join(tmp, "rx_cpu",
+                                                 trx.wav_name(name)))
+        got, ref = torch.as_tensor(got[tail]), torch.as_tensor(ref[tail])
+        if mode == "FM":
+            rows[name] = ("rms dB", 20 * float(torch.log10(
+                got.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())))
+            assert abs(rows[name][1]) < FM_RMS_DB, (name, rows[name])
+        else:
+            rows[name] = ("dB", snr_db(ref, got))
+            assert rows[name][1] >= FEATURED_MATCH_DB, (name, rows[name])
+    ms = res["loop_s"] / res["blocks"] * 1e3
+    warm = warm_ms(lambda: trx.run(DEVICE, EX_RX_SECONDS,
+                                   os.path.join(tmp, "rx_warm")))
+    print(f"  receiver: {res['blocks']} blocks, {ms:.4f} ms a block (host "
+          f"clock, the loop; {warm:.4f} on a second run) [{smi}]; WAV rows "
+          f"card vs CPU program from "
+          f"block {FEATURED_FROM_BLOCK}: " + ", ".join(
+              f"{k} {v[1]:.1f} {v[0]}" for k, v in rows.items()),
+          flush=True)
+    return {"wall_s": wall, "blocks": res["blocks"], "ms_block": ms,
+            "warm_ms_block": warm, "cpu_rows": rows, "launches": counts}
+
+
+def pfb_path_times(pipe, state, x, v=None, bb=None) -> dict:
+    """Kernel #4 (and #6 where ``bb`` is given) at an example path's shape:
+    ms, the plain version's ms and the bound."""
+    hist, dm = state
+    h = pipe.pfb.h_poly
+    out = {"poly_os": {
+        "ms": cuda_ms(lambda: pk.pfb_poly_oversampled(hist, x, h), 20),
+        "plain_ms": cuda_ms(
+            lambda: pk.pfb_poly_oversampled_plain(hist, x, h), 3, 1),
+        **poly_os_bound(pipe.pfb, hist, x), "library_ms": None}}
+    if bb is not None:
+        consts, kw = demod_args(pipe)
+        out["demod"] = {
+            "ms": cuda_ms(lambda: pk.pfb_demod_call(bb, dm, *consts, **kw),
+                          20),
+            "plain_ms": cuda_ms(
+                lambda: pk.pfb_demod_plain(bb, dm, *consts, **kw), 3, 1),
+            **demod_bound(pipe, bb, dm), "library_ms": None}
+    return out
+
+
+def ex_channelizer(tmp: str, smi: str) -> dict:
+    """examples/torch_demo_channelizer.py at K=256: 8 launches each of
+    kernels #4 and #6, both held to their plain versions on the path's
+    second block, the audio against the CPU program's."""
+    tch = example("torch_demo_channelizer")
+    res, wall, counts = timed_program(
+        lambda: tch.run(DEVICE, EX_PFB_K, os.path.join(tmp, "ch")),
+        f"channelizer (K={EX_PFB_K})", smi)
+    n = res["blocks"]
+    assert counts == {"pfb_poly_oversampled": n, "pfb_demod_call": n}, counts
+    cpu = one_thread(lambda: quietly(lambda: tch.run(
+        "cpu", EX_PFB_K, os.path.join(tmp, "ch_cpu"))))
+    got, ref = torch.as_tensor(res["audio"]), torch.as_tensor(cpu["audio"])
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    db = {"all": snr_db(ref, got)}
+    K = EX_PFB_K
+    for c in (5, K - 9, 17):
+        db[c] = snr_db(ref[c], got[c])
+    print(f"  channelizer: audio {tuple(got.shape)} card vs CPU program: "
+          + ", ".join(f"{k} {v:.1f} dB" for k, v in db.items()), flush=True)
+    assert min(db.values()) >= EX_CH_DB, db
+    pipe, x = res["pipe"], res["x"]
+    blk = x.shape[-1] // n
+    st, _ = pipe(pipe.init_state(1), x[:, :blk])
+    xb = x[:, blk:2 * blk]
+    poly_err, demod_err, v, bb = pfb_kernel_errors(pipe, st, xb)
+    times = pfb_path_times(pipe, (st[0], st[1]), xb, v, bb)
+    ms = res["loop_s"] / n * 1e3
+    warm = warm_ms(lambda: tch.run(DEVICE, EX_PFB_K,
+                                   os.path.join(tmp, "ch_warm")))
+    print(f"  channelizer: {ms:.4f} ms a block (host clock, the loop; "
+          f"{warm:.4f} on a second run) [{smi}]; kernel #4 "
+          f"{times['poly_os']['ms']:.4f} ms (plain "
+          f"{times['poly_os']['plain_ms']:.4f}, bound "
+          f"{times['poly_os']['bound_ms']:.4f} by "
+          f"{times['poly_os']['bound_by']}), kernel #6 "
+          f"{times['demod']['ms']:.4f} ms (plain "
+          f"{times['demod']['plain_ms']:.4f}, bound "
+          f"{times['demod']['bound_ms']:.4f} by "
+          f"{times['demod']['bound_by']})", flush=True)
+    return {"wall_s": wall, "blocks": n, "ms_block": ms,
+            "warm_ms_block": warm, "cpu_db": db,
+            "launches": counts, "poly_err": poly_err,
+            "demod_err": demod_err, "times": times}
+
+
+def ex_transceiver(tmp: str, smi: str) -> dict:
+    """examples/torch_demo_transceiver.py: kTxAlc once a TX step, held to
+    its plain version on the SSB loopback's block 3; the loopback's 1 kHz
+    beat, IMD better after PureSignal, the live session's voice."""
+    from quisk_tpu_torch.io.audio_in import AudioCapture
+    ttx = example("torch_demo_transceiver")
+    # each TX step's (chain, state, mic block); each mic block handed out
+    with logged_calls(TxChain, "step", lambda c, a, _: (c, *a)) as steps, \
+            logged_calls(AudioCapture, "get", lambda c, a, out: out) as mic:
+        res, wall, counts = timed_program(
+            lambda: ttx.run(DEVICE, os.path.join(tmp, "tx")),
+            "transceiver (loopback SSB and FM, PureSignal, live session)",
+            smi)
+    assert counts == {"tx_alc_scan": len(steps)}, (counts, len(steps))
+    before, after = res["imd"]
+    assert before - after > IMD_GAIN_DB, res["imd"]
+    voice, audio, smeter = res["live"]
+    keyed = len(audio) // AUDIO_BLOCK
+    rho, lag = voice_correlation(np.concatenate(mic[:keyed]), audio)
+    assert smeter > RADIO_SMETER_DB and rho > RADIO_RHO, (smeter, rho)
+    for name in ("ssb", "fm"):
+        assert bool(np.isfinite(res[name][1]).all()), name
+    tone = 0.3 * np.sin(2 * np.pi * BEAT_HZ * np.arange(
+        EX_BEAT_BLOCKS * AUDIO_BLOCK) / 48000.0)
+    _, a = ttx.loopback("USB", "USB", blocks=EX_BEAT_BLOCKS, device=DEVICE,
+                        voice=tone)
+    beat = beat_hz(a[3 * AUDIO_BLOCK:], 48000.0)
+    assert abs(beat - BEAT_HZ) < 30.0, beat
+    chain, state, mic_block = steps[EX_ALC_CALL]
+    st, iq = chain.pre_alc(state, mic_block)
+    args = chain.alc.scan_inputs(st["alc"], iq)[1]
+    check = check_agc("tx_alc", args)
+    xs, ast, coef, kw = args
+    t = {"ms": cuda_ms(lambda: agc_scan.tx_alc_scan(
+             *xs, ast, coef, **dict(kw, clips=False)), 20),
+         "plain_ms": cuda_ms(lambda: agc_scan.tx_alc_plain(*xs, ast, coef,
+                                                           **kw), 1, 0),
+         **agc_bound("tx_alc", *xs[0].shape), "library_ms": None}
+    print(f"  transceiver: {len(steps)} TX steps, kTxAlc "
+          f"{counts['tx_alc_scan']}; IMD {before:.1f} -> {after:.1f} dBc; "
+          f"live session S-meter {smeter:.1f} dBFS, voice rho {rho:.4f} at "
+          f"lag {lag}; SSB loopback beat {beat:.1f} Hz; kTxAlc on block "
+          f"{EX_ALC_CALL}'s ALC input: {check}; parts (host s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items())
+          + f"; kTxAlc at [1, {AUDIO_BLOCK}] {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.6f} by "
+          f"{t['bound_by']} [{smi}]", flush=True)
+    return {"wall_s": wall, "tx_steps": len(steps), "launches": counts,
+            "imd": [before, after], "smeter": smeter, "rho": rho,
+            "beat_hz": beat, "alc": check, "parts_s": res["seconds"],
+            "max_abs_err": check["max_abs_err"], **t}
+
+
+def ex_survey(tmp: str, smi: str) -> dict:
+    """examples/torch_demo_wideband_survey.py at K=128: no sequence error,
+    kernel #4 once a block, held to its plain version on the first."""
+    tsv = example("torch_demo_wideband_survey")
+    res, wall, counts = timed_program(
+        lambda: tsv.run(DEVICE, EX_SURVEY_K, EX_SURVEY_BLOCKS,
+                        os.path.join(tmp, "sv")),
+        f"wideband survey (K={EX_SURVEY_K}, {EX_SURVEY_BLOCKS} blocks)", smi)
+    stats = res["stats"]
+    assert stats["seq_errors"] == 0 and res["blocks"] == EX_SURVEY_BLOCKS
+    assert counts == {"pfb_poly_oversampled": EX_SURVEY_BLOCKS}, counts
+    pipe, x = res["pipe"], res["x"]
+    state = pipe.init_state(1)
+    v = pk.pfb_poly_oversampled(state[0], x, pipe.pfb.h_poly)
+    vp = pk.pfb_poly_oversampled_plain(state[0], x, pipe.pfb.h_poly)
+    poly_err = float((v - vp).abs().max())
+    assert poly_err <= POLY_TOL * float(vp.abs().max()), poly_err
+    times = pfb_path_times(pipe, state, x)
+    ms = res["loop_s"] / res["blocks"] * 1e3
+    warm = warm_ms(lambda: tsv.run(DEVICE, EX_SURVEY_K, EX_SURVEY_BLOCKS,
+                                   os.path.join(tmp, "sv_warm")))
+    print(f"  survey: {stats['packets']} packets, {stats['seq_errors']} seq "
+          f"errors, native {stats.get('native', False)}; stations on "
+          f"{res['top']}; {ms:.4f} ms a block (host clock, the receive "
+          f"loop, paced by the sender; {warm:.4f} on a second run) [{smi}]; "
+          f"kernel #4 max|kernel-plain| "
+          f"{poly_err:.2e}, {times['poly_os']['ms']:.4f} ms (plain "
+          f"{times['poly_os']['plain_ms']:.4f}, bound "
+          f"{times['poly_os']['bound_ms']:.4f} by "
+          f"{times['poly_os']['bound_by']})", flush=True)
+    return {"wall_s": wall, "blocks": res["blocks"], "ms_block": ms,
+            "warm_ms_block": warm, "stats": stats, "launches": counts,
+            "poly_err": poly_err,
+            "times": times}
+
+
+def ex_station(smi: str) -> dict:
+    """examples/torch_station_automation.py: the plugin's fan-out
+    counters after the program's session."""
+    tsa = example("torch_station_automation")
+    (hw, audio), wall, counts = timed_program(
+        lambda: tsa.run(DEVICE), "station automation", smi)
+    fan = {"tune_count": hw.anttuner.tune_count,
+           "relay": hw.filterbox.relay,
+           "heartbeats": hw.controlbox.heartbeat_count,
+           "interlock": hw.controlbox.tx_enabled}
+    assert fan == EX_FAN_OUT, fan
+    assert audio.shape == (1, AUDIO_BLOCK) and np.isfinite(audio).all()
+    print(f"  station automation: fan-out {fan}", flush=True)
+    return {"wall_s": wall, "fan_out": fan, "launches": counts}
+
+
+def zoom_on_card(smi: str) -> dict:
+    """tpu_zoom_smoke.py's check on the card: a 192 kHz Radio, two tones
+    80 Hz apart inside one base FFT bin, set_zoom(64, vfo + 40040): the
+    re-capture engages and its row resolves both tones."""
+    from quisk_tpu_torch.hw.base import SimHardware
+
+    class TwoTone(SimHardware):
+        def read_samples(self, n):
+            t = (np.arange(n) + self._n0) / self.sample_rate
+            self._n0 += n
+            x = sum(0.5 * np.exp(2j * np.pi * f * t) for f in ZOOM_TONES_HZ)
+            return x.astype(np.complex64)[None]
+
+    cfg = RadioConfig(sample_rate=192000.0, mode="USB", tune_hz=10000.0,
+                      audio_block=AUDIO_BLOCK)
+    hw = TwoTone(cfg)
+    hw._n0 = 0
+    r = Radio(cfg, hardware=hw)
+    try:
+        r.open()
+        base_bin = cfg.sample_rate / r.graph.sa.fft_size
+        r.set_zoom(ZOOM_FACTOR, r.vfo_hz + sum(ZOOM_TONES_HZ) / 2)
+        t0 = time.perf_counter()
+        r.run(blocks=ZOOM_BLOCKS)
+        secs = time.perf_counter() - t0
+        assert r._zoomcap is not None, "zoom did not engage"
+        zs = r._zoomcap[0]
+        assert zs.an.window.device.type == torch.device(DEVICE).type
+        lo, bin_hz, row = r._zoom_trace()
+    finally:
+        r.close()
+    zres = cfg.sample_rate / (zs.decim * zs.an.fft_size)
+    rr = row - row.min()
+    peaks = [i for i in range(1, len(rr) - 1)
+             if rr[i] >= rr[i - 1] and rr[i] >= rr[i + 1]
+             and rr[i] > 0.7 * rr.max()]
+    groups = []
+    for i in peaks:
+        if groups and i - groups[-1][-1] <= 2:
+            groups[-1].append(i)
+        else:
+            groups.append([i])
+    freqs = sorted(lo + bin_hz * (np.mean(g) + 0.5) for g in groups)
+    want = [r.vfo_hz + f for f in ZOOM_TONES_HZ]
+    print(f"  zoom on the card: engaged, decim {zs.decim}, resolution "
+          f"{zres:.2f} Hz against the base bin {base_bin:.2f} Hz, row "
+          f"{row.shape} from {lo:.0f} Hz at {bin_hz:.2f} Hz/px; peaks at "
+          f"{[round(float(f), 1) for f in freqs]} Hz (tones {want}); "
+          f"{ZOOM_BLOCKS} blocks in {secs:.3f} s [{smi}]", flush=True)
+    assert zs.decim <= ZOOM_FACTOR and zres < base_bin / 2
+    assert len(freqs) == 2, freqs
+    assert all(abs(f - w) < 2 * zres for f, w in zip(freqs, want)), freqs
+    return {"decim": zs.decim, "resolution_hz": zres, "peaks_hz": freqs,
+            "run_s": secs}
+
+
+def phase_examples(report: dict, smi: str) -> dict:
+    """Phase 34: the five example programs on the card at their default
+    sizes, each through its ``run``, and the zoom engaged on a Radio."""
+    t0 = time.perf_counter()
+    print("examples (phase 34):", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"receiver": ex_receiver(tmp, smi),
+               "channelizer": ex_channelizer(tmp, smi),
+               "transceiver": ex_transceiver(tmp, smi),
+               "survey": ex_survey(tmp, smi),
+               "station": ex_station(smi)}
+    out["zoom"] = zoom_on_card(smi)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 34: {out['phase_s']:.1f} s [{smi}]", flush=True)
+    report["examples"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON")
@@ -5923,6 +6381,34 @@ def main(argv=None) -> int:
     phase_parallel_rehearsal(report, smi, par["timeshard"]["audio"])
     del par
     torch.cuda.empty_cache()
+    # slice 8: the five example programs at their default sizes (phase
+    # 34; their inputs are the programs' own seeded draws)
+    ex = phase_examples(report, smi)
+    ch, sv, tx = ex["channelizer"], ex["survey"], ex["transceiver"]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels += [
+        {**poly_os, "path": f"examples/torch_demo_channelizer.py "
+                            f"(K={EX_PFB_K}, B={EX_PFB_K * 1024})",
+         "launches": ch["launches"]["pfb_poly_oversampled"],
+         "max_abs_err": ch["poly_err"],
+         **{k: ch["times"]["poly_os"][k] for k in timed}},
+        {**demod, "path": f"examples/torch_demo_channelizer.py "
+                          f"(K={EX_PFB_K}, K1=2, n_out=2048)",
+         "launches": ch["launches"]["pfb_demod_call"],
+         "max_abs_err": ch["demod_err"],
+         **{k: ch["times"]["demod"][k] for k in timed}},
+        {**poly_os, "path": f"examples/torch_demo_wideband_survey.py "
+                            f"(K={EX_SURVEY_K}, B={EX_SURVEY_K * 256})",
+         "launches": sv["launches"]["pfb_poly_oversampled"],
+         "max_abs_err": sv["poly_err"],
+         **{k: sv["times"]["poly_os"][k] for k in timed}},
+        {"name": "agc_scan_tx_alc", "route": "cuda", "source": AGC_SRC,
+         "replaces": AGC_REPLACES["tx_alc"],
+         "path": "examples/torch_demo_transceiver.py (loopback SSB and FM, "
+                 "PureSignal, the live Radio session), C=1",
+         "launches": tx["launches"]["tx_alc_scan"],
+         "max_abs_err": tx["max_abs_err"], **{k: tx[k] for k in timed}},
+    ]
     report["kernels"] = kernels
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -96,7 +96,8 @@ def test_import_loads_no_jax():
 def _port_sources():
     root = Path(__file__).resolve().parents[1]
     return sorted((root / "quisk_tpu_torch").rglob("*.py")) + [
-        root / "chip_smoke.py"]
+        root / "chip_smoke.py"] + sorted(
+        (root / "examples").glob("torch_*.py"))
 
 
 def test_port_sources_cover_the_featured_modules():

@@ -21,8 +21,9 @@ numpy-seeded inputs, to:
 - the time-sharded FIR (plain > 100 dB, decimating > 100 dB), one-pole
   (> 80 dB, one all_gather a call), NCO (phase continuous across shard
   edges) and ``timeshard_rx`` (SSB > 90 dB, FM > 60 dB from sample 512,
-  see there) against the JAX package's float64 oracle, as
-  tests/test_timeshard.py builds it;
+  see there, AM > 80 dB) against the JAX package's float64 oracle, as
+  tests/test_timeshard.py builds it, and in AM against the JAX
+  ``timeshard_rx`` on a (1, 2) mesh (> 80 dB);
 - the time-sharded PFB over two blocks against the JAX unsharded
   OversampledPFB + MixedDemod (audio within 1e-3, spectra rtol 1e-3, as
   tests/test_scaling.py:165-222), with one ring message and one
@@ -340,6 +341,10 @@ def _timeshard_oracle(iq, f0, band, mode):
                                                         48000.0))
     if mode == "ssb":
         return 2.0 * np.real(bb)
+    if mode == "am":
+        # timeshard_rx's AM: the envelope's difference through the 0.995
+        # one-pole, unit gain
+        return dsp.am_demod(bb, pole=0.995, gain=1.0)
     return dsp.fm_demod(bb, 48000.0, 2500.0)
 
 
@@ -349,11 +354,17 @@ def _timeshard_oracle(iq, f0, band, mode):
 # at sample 2 where the float64 oracle reads -pi); the de-emphasis carries
 # that for a few hundred samples (3.5e-5 at sample 256, 1e-7 from 512).
 # Compared from sample 512, half the 1025-tap filter, where the signal has
-# filled it.  SSB has no such branch: from sample 64, as the reference's.
+# filled it.  SSB and AM have no such branch: from sample 64, as the
+# reference's.
+AM_DB = 80.0
+TS_CASES = {"ssb": (40000.0, (300.0, 3100.0), 90.0, 64),
+            "fm": (-30000.0, (-6250.0, 6250.0), 60.0, 512),
+            "am": (ranks.AM_TUNE_HZ, ranks.AM_BAND, AM_DB, 64)}
+
+
 @pytest.mark.parametrize("n", WORLDS)
 @pytest.mark.parametrize("mode,f0,band,floor,skip", [
-    ("ssb", 40000.0, (300.0, 3100.0), 90.0, 64),
-    ("fm", -30000.0, (-6250.0, 6250.0), 60.0, 512)])
+    (m, *case) for m, case in TS_CASES.items()])
 def test_timeshard_rx(worlds, n, mode, f0, band, floor, skip):
     parts = worlds.result(n)
     audio = stitch_grid(parts, mode)
@@ -364,11 +375,42 @@ def test_timeshard_rx(worlds, n, mode, f0, band, floor, skip):
         assert dsp.snr_db(ref, audio[c], skip=skip) > floor, (mode, c)
     for z in parts:
         c = counts(z, mode)
-        # FIR halos; the one-pole's gather in FM; no corner turn
+        # FIR halos; in FM and AM the one-pole's gather and the one-sample
+        # halo of the discriminator or the envelope difference; no corner
+        # turn
         assert c["all_to_all"] == 0
-        assert c["all_gather"] == (1 if mode == "fm" else 0), c
+        assert c["all_gather"] == (0 if mode == "ssb" else 1), c
         nt = 1 if n == 1 else 2
-        assert c["send"] == (0 if nt == 1 else 3 + (mode == "fm")), c
+        assert c["send"] == (0 if nt == 1 else 3 + (mode != "ssb")), c
+
+
+@pytest.fixture(scope="module")
+def jax_timeshard_am():
+    """The JAX package's timeshard_rx in AM on a (chan, time) = (1, 2)
+    mesh over the ranks' AM input."""
+    import jax
+    from jax.sharding import Mesh as JMesh
+    from jax.sharding import NamedSharding, PartitionSpec
+    from quisk_tpu.ops import design as jdesign
+    from quisk_tpu.parallel import timeshard as jts
+
+    mesh = JMesh(np.array(jax.devices()[:2]).reshape(1, 2), ("chan", "time"))
+    x = jax.device_put(ranks.timeshard_inputs()["am"],
+                       NamedSharding(mesh, PartitionSpec("chan", "time")))
+    stages = [(jdesign.halfband(45), 2), (jdesign.halfband(45), 2)]
+    return np.asarray(jts.timeshard_rx(
+        x, mesh, sample_rate=192000.0, tune_hz=ranks.AM_TUNE_HZ,
+        stages=stages, bp_taps=jdesign.bandpass_analytic(
+            1025, *ranks.AM_BAND, 48000.0), mode="am"))
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_timeshard_rx_am_against_the_jax_package(worlds, jax_timeshard_am,
+                                                 n):
+    audio = stitch_grid(worlds.result(n), "am")
+    assert audio.shape == jax_timeshard_am.shape == (2, 16384 // 4)
+    for c in range(2):
+        assert dsp.snr_db(jax_timeshard_am[c], audio[c]) > AM_DB, c
 
 
 # --------------------------------------------------------------------- PFB

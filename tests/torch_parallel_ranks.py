@@ -51,6 +51,9 @@ FEATURED = dict(noise_blanker=2, auto_notch=True, nr=True, anf=True,
                 squelch=True, fm_squelch=True)
 FS = 192000.0
 PFB_BLOCKS = 2
+# timeshard_rx in AM: a station 25 kHz up, the channel filter +-4 kHz
+AM_TUNE_HZ = 25000.0
+AM_BAND = (-4000.0, 4000.0)
 
 
 def tune(C: int, fs: float = FS, span: float = 2.0) -> list[float]:
@@ -111,6 +114,10 @@ def timeshard_inputs() -> dict:
     voice = sources.voice_like(fs, N, band=(300.0, 2700.0), seed=6)
     out["fm"] = np.broadcast_to(sources.fm_signal(
         voice, fs, deviation_hz=2500.0, carrier_hz=-30000.0).astype(
+        np.complex64), (C, N)).copy()
+    voice = sources.voice_like(fs, N, band=(300.0, 2700.0), seed=8)
+    out["am"] = np.broadcast_to(sources.am_signal(
+        voice / np.max(np.abs(voice)), fs, carrier_hz=AM_TUNE_HZ).astype(
         np.complex64), (C, N)).copy()
     return out
 
@@ -206,7 +213,8 @@ def timeshard_cases(res, n) -> None:
     res["nco.pos"] = pos
     stages = [(design.halfband(45), 2), (design.halfband(45), 2)]
     for mode, f0, band in (("ssb", 40000.0, (300.0, 3100.0)),
-                           ("fm", -30000.0, (-6250.0, 6250.0))):
+                           ("fm", -30000.0, (-6250.0, 6250.0)),
+                           ("am", AM_TUNE_HZ, AM_BAND)):
         x, pos = local(mesh, xs[mode])
         before = dict(mesh.counts)
         res[f"{mode}.y"] = ts.timeshard_rx(
