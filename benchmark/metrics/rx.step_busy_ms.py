@@ -1,0 +1,13 @@
+"""rx.step_busy_ms: the per-channel receiver's step (RxChain.step) busy on
+the card a block, in ms: the union of the intervals of its own kernels,
+memsets and device copies (not the feed's copy in, not the harness's
+copy out) in the traced window, over the blocks handed off.  Moves
+input_msps where the step sets the pace."""
+
+from qbench.trace import step_busy_ms
+
+
+def read(ctx):
+    if ctx.cfg["system"] != "rx_chain":
+        return None
+    return step_busy_ms(ctx.trace)
