@@ -189,7 +189,7 @@ Phases, each fatal on failure:
     each path's own [1024, 2048] demod input (bit-equal, asserted), with
     the exact zeros in it and in the first block from an empty history;
 22. timing of both paths (events, host clock, idle share), the PLL-NFM
-    step's stages by the port's StageTimer, and the kernel in both modes
+    step's stages by CUDA events, and the kernel in both modes
     with its plain version and bound;
 23. the spectral noise blanker ([1024, 2048] audio with impulses, fft
     256), PartitionedOLS (10001 taps, block 512, C=1024: the FDL is 168
@@ -462,7 +462,6 @@ from quisk_tpu_torch.tx import TxChain, TxChainConfig
 from quisk_tpu_torch.tx.puresignal import (Predistorter, SimulatedPA,
                                            two_tone_imd_db)
 from quisk_tpu_torch.oracle import dsp
-from quisk_tpu_torch.utils.profiling import StageTimer
 
 FS = 960000.0
 C = 1024
@@ -3022,7 +3021,7 @@ def pll_bound(C_: int, B: int, mode: str) -> dict:
 
 def phase_timing_pll(report: dict, smi: str, paths: dict) -> dict:
     """Both paths' steps (events, host clock, idle share), the PLL-NFM
-    step's stages by StageTimer, and the kernel in both modes at the
+    step's stages by CUDA events, and the kernel in both modes at the
     paths' shape with its plain version and bound."""
     dev = torch.device(DEVICE)
     out = {}
@@ -3038,33 +3037,28 @@ def phase_timing_pll(report: dict, smi: str, paths: dict) -> dict:
               f"{budget / ms:.2f}x of {budget:.2f} ms", flush=True)
         out[label] = {"ms_per_block": ms, "host_ms_per_block": host,
                       "realtime_factor": budget / ms, "idle": idle}
-    # the PLL-NFM step's stages by the port's StageTimer (host clock, each
-    # mark synchronising the card), 10 blocks
+    # the PLL-NFM step's stages by CUDA events, each on this block's real
+    # intermediates (as phase_main_path times the flagship's)
     nfm = paths["nfm"]
-    xs = [torch.as_tensor(b, device=dev) for b in paths["nfm_blocks"][:2]]
+    x = torch.as_tensor(paths["nfm_blocks"][0], device=dev)
     st = nfm.init_state()
-    tm = StageTimer()
-    for i in range(12):
-        if i == 2:
-            tm.reset()
-        x = xs[i % 2]
-        torch.cuda.synchronize()
-        tm.start()
-        st["front"], y = nfm.front(st["front"], x)
-        tm.mark("front kernel", y)
-        st["bp"], y = nfm.bp(st["bp"], y)
-        tm.mark("channel filter", y)
-        rf = nfm.fm_sq.measure(y)
-        st["demod"], a = nfm.demod(st["demod"], y)
-        tm.mark("demod (PLL FM kernel)", a)
-        st["agc"], a = nfm.agc(st["agc"], a)
-        tm.mark("agc", a)
-        st["fm_sq"], a = nfm.fm_sq(st["fm_sq"], a, rf)
-        tm.mark("fm squelch", a)
-    print("  PLL-NFM stages by StageTimer:\n    " + tm.report().replace(
-        "\n", "\n    "), flush=True)
-    out["PLL-NFM"]["stages_ms"] = {k: v / tm.counts[k] * 1e3
-                                   for k, v in tm.totals.items()}
+    _, y_front = nfm.front(st["front"], x)
+    _, y_bp = nfm.bp(st["bp"], y_front)
+    rf = nfm.fm_sq.measure(y_bp)
+    _, aud = nfm.demod(st["demod"], y_bp)
+    _, a_agc = nfm.agc(st["agc"], aud)
+    stages = {
+        "front kernel": cuda_ms(lambda: nfm.front(st["front"], x), 10),
+        "channel filter": cuda_ms(lambda: nfm.bp(st["bp"], y_front), 10),
+        "demod (PLL FM kernel)": cuda_ms(
+            lambda: (nfm.fm_sq.measure(y_bp),
+                     nfm.demod(st["demod"], y_bp)), 10),
+        "agc": cuda_ms(lambda: nfm.agc(st["agc"], aud), 10),
+        "fm squelch": cuda_ms(lambda: nfm.fm_sq(st["fm_sq"], a_agc, rf), 10),
+    }
+    print("  PLL-NFM stages by CUDA events:\n    " + "\n    ".join(
+        f"{k:24s} {v:8.3f} ms/block" for k, v in stages.items()), flush=True)
+    out["PLL-NFM"]["stages_ms"] = stages
     # the EXT demod's parts and the whole mixed demod, by CUDA events
     k = paths["kern"]["pll_fm"]
     ext, x = nfm.demod.ext, k["x"]

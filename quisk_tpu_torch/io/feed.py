@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from quisk_tpu_torch._device import resolve_device
+from quisk_tpu_torch.utils.profiling import span
 
 
 class DeviceFeed:
@@ -133,7 +134,7 @@ class DeviceFeed:
             return src, None                 # already on the card
         if src is None or not src.is_pinned():
             src = self._stage(x_host)
-        with torch.cuda.stream(self._copy_stream):
+        with span("feed.copy"), torch.cuda.stream(self._copy_stream):
             dev = torch.empty(src.shape, dtype=src.dtype, device=self.device)
             dev.copy_(src, non_blocking=True)
             ev = torch.cuda.Event()
@@ -149,9 +150,10 @@ class DeviceFeed:
         x = (x_host if isinstance(x_host, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(x_host)))
         buf = self._ring_buffer(x.shape, x.dtype)
-        t0 = time.perf_counter()
-        buf.copy_(x)
-        self.staging_s += time.perf_counter() - t0
+        with span("feed.stage"):
+            t0 = time.perf_counter()
+            buf.copy_(x)
+            self.staging_s += time.perf_counter() - t0
         self.staged_bytes += x.numel() * x.element_size()
         return buf
 
@@ -160,7 +162,8 @@ class DeviceFeed:
         the copy that last read it is done."""
         i = self._slot
         if self._ring_ev[i] is not None:
-            self._ring_ev[i].synchronize()
+            with span("feed.ring_wait"):
+                self._ring_ev[i].synchronize()
             self._ring_ev[i] = None
         buf = self._ring[i]
         if buf is None or buf.shape != tuple(shape) or buf.dtype != dtype:

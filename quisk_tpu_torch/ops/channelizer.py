@@ -37,6 +37,7 @@ from quisk_tpu_torch.ops.pfb_kernels import (K2, pfb_demod_call,
                                              pfb_poly_critical_plain,
                                              pfb_poly_oversampled,
                                              pfb_poly_oversampled_plain)
+from quisk_tpu_torch.utils.profiling import span
 
 
 def pfb_prototype(n_chan: int, taps_per_branch: int = 8,
@@ -337,25 +338,38 @@ class PFBRxPipeline:
         """x [S, B] complex -> ((pfb_st, dm_st), (audio, spec))."""
         pfb_st, dm_st = state
         S = x.shape[0]
-        if not self.pallas_demod:
-            pfb_st, vr, vi = self.pfb.poly_ri(pfb_st, x)
-            yr, yi = self.pfb.idft_ri(vr, vi)
-            zr, zi = self.pfb.rotate_tm(yr, yi)
-            dm_st, audio = self.demod(dm_st, zr, zi)    # [S, n_out, K]
-            spec = ((zr * zr + zi * zi).mean(dim=-2) if self.with_spectrum
-                    else torch.zeros((S, 1), dtype=torch.float32,
-                                     device=x.device))
-            return (pfb_st, dm_st), (audio, spec)
-        pfb_st, v = self.pfb.poly_stacked(pfb_st, x)
-        n_out = v.shape[1]
-        _, (twr, twi), (w2r, w2i), am_m, fm_m = self.kd
-        audio, spec_sum, dm_st = pfb_demod_call(
-            self.stage1(v), dm_st, twr, twi, w2r, w2i, am_m, fm_m,
-            g_ssb=self.g_ssb, g_am=self.g_am, g_fm=self.g_fm,
-            a_dc=self.a_dc, a_de=self.a_de, b_de=self.b_de)
-        if self.with_spectrum:
-            pos = torch.as_tensor(self.chan_pos, device=x.device)
-            spec = (spec_sum.reshape(S, -1) * (1.0 / n_out))[:, pos]
-        else:
-            spec = torch.zeros((S, 1), dtype=torch.float32, device=x.device)
+        with span("pfb.step"):
+            if not self.pallas_demod:
+                with span("pfb.poly"):
+                    pfb_st, vr, vi = self.pfb.poly_ri(pfb_st, x)
+                with span("pfb.dft"):
+                    yr, yi = self.pfb.idft_ri(vr, vi)
+                    zr, zi = self.pfb.rotate_tm(yr, yi)
+                with span("pfb.demod"):
+                    dm_st, audio = self.demod(dm_st, zr, zi)  # [S,n_out,K]
+                if self.with_spectrum:
+                    with span("pfb.power"):
+                        spec = (zr * zr + zi * zi).mean(dim=-2)
+                else:
+                    spec = torch.zeros((S, 1), dtype=torch.float32,
+                                       device=x.device)
+                return (pfb_st, dm_st), (audio, spec)
+            with span("pfb.poly"):
+                pfb_st, v = self.pfb.poly_stacked(pfb_st, x)
+            n_out = v.shape[1]
+            _, (twr, twi), (w2r, w2i), am_m, fm_m = self.kd
+            with span("pfb.stage1"):
+                bb = self.stage1(v)
+            with span("pfb.demod"):
+                audio, spec_sum, dm_st = pfb_demod_call(
+                    bb, dm_st, twr, twi, w2r, w2i, am_m, fm_m,
+                    g_ssb=self.g_ssb, g_am=self.g_am, g_fm=self.g_fm,
+                    a_dc=self.a_dc, a_de=self.a_de, b_de=self.b_de)
+            if self.with_spectrum:
+                with span("pfb.power"):
+                    pos = torch.as_tensor(self.chan_pos, device=x.device)
+                    spec = (spec_sum.reshape(S, -1) * (1.0 / n_out))[:, pos]
+            else:
+                spec = torch.zeros((S, 1), dtype=torch.float32,
+                                   device=x.device)
         return (pfb_st, dm_st), (audio, spec)

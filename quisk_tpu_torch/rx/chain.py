@@ -48,6 +48,7 @@ from quisk_tpu_torch.ops.resample import FracDecim
 from quisk_tpu_torch.ops.squelch import FMSquelch, SSBSquelch
 from quisk_tpu_torch.rx.frontend import FrontConditioner
 from quisk_tpu_torch.rx.planner import plan_block_sizes, plan_decimation
+from quisk_tpu_torch.utils.profiling import span
 
 
 def mode_band(mode: Mode, bandwidth: float | None = None,
@@ -428,52 +429,65 @@ class RxChain:
             g = self.ons[name]
             return wet * g + dry * (1.0 - g)
 
-        if self.cond is not None:
-            st["cond"], x = self.cond(st["cond"], x, key_down=key_down)
-        if self._nb_fused:
-            st["front"], y, gout = self.front.call_nb(
-                st["front"], x, st["nbg"], self.ons["nb"], self.nb.limit)
-            st["nbg"] = gout[:, -self.front.gain_hist_groups:]
-        elif self._nb_gained:
-            st["nb"], gc = self.nb.detect(st["nb"], x)
-            gc = 1.0 + self.ons["nb"] * (gc - 1.0)
-            st["front"], y = self.front(
-                st["front"], x, gain16=torch.cat([st["nbg"], gc], dim=-1))
-            st["nbg"] = gc[:, -self.front.gain_hist_groups:]
-        else:
-            if self.nb is not None:
-                st["nb"], xb = self.nb(st["nb"], x)
-                x = blend("nb", xb, x)
-            if self.front is not None:
-                st["front"], y = self.front(st["front"], x)
-            else:
-                st["nco"], y = self.nco(st["nco"], x)
-        new_stage_states = []
-        for op, s in zip(self.stages, st["stages"]):
-            s, y = op(s, y)
-            new_stage_states.append(s)
-        st["stages"] = tuple(new_stage_states)
-        st["bp"], y = self.bp(st["bp"], y)
-        if self.frac is not None:
-            st["frac"], y = self.frac(st["frac"], y)
-        if self.fm_sq is not None:
-            rf_db = self.fm_sq.measure(y)      # pre-demod carrier power
-        y_filtered = y
-        st["demod"], audio = self.demod(st["demod"], y)
-        for name, op in (("notch", self.notch), ("anf", self.anf),
-                         ("nr", self.nr), ("agc", self.agc),
-                         ("squelch", self.squelch)):
-            if op is not None:
-                st[name], a2 = op(st[name], audio)
-                audio = blend(name, a2, audio)
-        if self.fm_sq is not None:
-            st["fm_sq"], a2 = self.fm_sq(st["fm_sq"], audio, rf_db)
-            audio = blend("fm_sq", a2, audio)
-        if self.demod.iq_out:
-            # DGT-IQ pass-through (quisk.c:2141-2153): those channels emit
-            # the channel-filtered IQ; real audio rides Re of the others
-            is_iq = (self.demod.mode == int(Mode.DGT_IQ))[:, None]
-            audio = torch.where(is_iq, y_filtered, audio.to(torch.complex64))
+        with span("rx.step"):
+            with span("rx.front"):
+                if self.cond is not None:
+                    st["cond"], x = self.cond(st["cond"], x,
+                                              key_down=key_down)
+                if self._nb_fused:
+                    st["front"], y, gout = self.front.call_nb(
+                        st["front"], x, st["nbg"], self.ons["nb"],
+                        self.nb.limit)
+                    st["nbg"] = gout[:, -self.front.gain_hist_groups:]
+                elif self._nb_gained:
+                    st["nb"], gc = self.nb.detect(st["nb"], x)
+                    gc = 1.0 + self.ons["nb"] * (gc - 1.0)
+                    st["front"], y = self.front(
+                        st["front"], x,
+                        gain16=torch.cat([st["nbg"], gc], dim=-1))
+                    st["nbg"] = gc[:, -self.front.gain_hist_groups:]
+                else:
+                    if self.nb is not None:
+                        st["nb"], xb = self.nb(st["nb"], x)
+                        x = blend("nb", xb, x)
+                    if self.front is not None:
+                        st["front"], y = self.front(st["front"], x)
+                    else:
+                        st["nco"], y = self.nco(st["nco"], x)
+                new_stage_states = []
+                for op, s in zip(self.stages, st["stages"]):
+                    s, y = op(s, y)
+                    new_stage_states.append(s)
+                st["stages"] = tuple(new_stage_states)
+            with span("rx.filter"):
+                st["bp"], y = self.bp(st["bp"], y)
+                if self.frac is not None:
+                    st["frac"], y = self.frac(st["frac"], y)
+                if self.fm_sq is not None:
+                    rf_db = self.fm_sq.measure(y)  # pre-demod carrier power
+            y_filtered = y
+            with span("rx.demod"):
+                st["demod"], audio = self.demod(st["demod"], y)
+            for name, op, where in (("notch", self.notch, "rx.notch"),
+                                    ("anf", self.anf, "rx.anf"),
+                                    ("nr", self.nr, "rx.nr"),
+                                    ("agc", self.agc, "rx.agc"),
+                                    ("squelch", self.squelch, "rx.squelch")):
+                if op is not None:
+                    with span(where):
+                        st[name], a2 = op(st[name], audio)
+                        audio = blend(name, a2, audio)
+            if self.fm_sq is not None:
+                with span("rx.fm_sq"):
+                    st["fm_sq"], a2 = self.fm_sq(st["fm_sq"], audio, rf_db)
+                    audio = blend("fm_sq", a2, audio)
+            if self.demod.iq_out:
+                # DGT-IQ pass-through (quisk.c:2141-2153): those channels
+                # emit the channel-filtered IQ; real audio rides Re of the
+                # others
+                is_iq = (self.demod.mode == int(Mode.DGT_IQ))[:, None]
+                audio = torch.where(is_iq, y_filtered,
+                                    audio.to(torch.complex64))
         return st, audio
 
     def step_blocks(self, state, iq: torch.Tensor, nblocks: int):

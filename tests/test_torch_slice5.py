@@ -1,6 +1,6 @@
 """The rest of slice 5 of the port against the JAX package, on the CPU:
 the spectral noise blanker, the partitioned overlap-save FIR, diversity
-combining, the stage timers, the TX ALC oracle and ``AMDemod.envelope``.
+combining, the TX ALC oracle and ``AMDemod.envelope``.
 
 - ``SpectralNoiseBlanker``: output >= 90 dB per row against the JAX op over
   8 blocks of audio with impulses (both packages FFT with pocketfft, but
@@ -13,10 +13,7 @@ combining, the stage timers, the TX ALC oracle and ``AMDemod.envelope``.
   ``OverlapSaveFIR`` within 1e-4 (tests/test_fir.py:124-175).
 - ``DiversityCombiner`` and both weight estimators against the JAX
   package, and the behaviour of tests/test_ratematch_div.py:104-135.
-- ``StageTimer`` / ``RateMeter`` as tests/test_status_profiling.py:12-42.
 """
-
-import time
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +37,6 @@ from quisk_tpu_torch.ops.demod import AMDemod
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR, PartitionedOLS
 from quisk_tpu_torch.ops.noise import SpectralNoiseBlanker
 from quisk_tpu_torch.oracle.wcpagc import alc_oracle
-from quisk_tpu_torch.utils.profiling import RateMeter, StageTimer
 
 FS = 48000.0
 B = 2048
@@ -329,45 +325,6 @@ def test_diversity_max_snr_beats_single_antenna():
     k_sig = np.argmin(np.abs(np.fft.fftfreq(len(y)) - 0.01))
     single = np.abs(np.fft.fft(x[0, 0]))[k_sig]
     assert Y[k_sig] > 1.1 * single         # coherent gain over one antenna
-
-
-# ------------------------------------------------------------- profiling
-def test_stage_timer_accumulates():
-    tm = StageTimer(enabled=True, sync=False)
-    tm.start()
-    time.sleep(0.01)
-    tm.mark("a")
-    time.sleep(0.02)
-    tm.mark("b")
-    tm.start()
-    time.sleep(0.01)
-    tm.mark("a")
-    assert tm.counts["a"] == 2 and tm.counts["b"] == 1
-    assert tm.totals["a"] >= 0.018 and tm.totals["b"] >= 0.018
-    rep = tm.report()
-    assert "a" in rep and "ms/block" in rep
-    # a CPU tensor as the stage's value needs no synchronise
-    tm.start()
-    tm.mark("c", torch.zeros(3))
-    assert tm.counts["c"] == 1
-    tm.reset()
-    assert not tm.totals
-    # disabled timer is free of effects
-    off = StageTimer(enabled=False)
-    off.start()
-    off.mark("x")
-    assert not off.totals
-
-
-def test_rate_meter_converges():
-    rm = RateMeter(window_secs=0.05)
-    rm.add(0)
-    t0 = time.monotonic()
-    while time.monotonic() - t0 < 0.2:
-        rm.add(480)
-        time.sleep(0.005)
-    assert rm.rate > 0
-    assert 0.3 * 480 / 0.005 < rm.rate < 3.0 * 480 / 0.005
 
 
 # -------------------------------------------------------- ALC oracle, misc
