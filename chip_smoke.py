@@ -50,16 +50,21 @@ Phases, each fatal on failure:
    PyTorch version within 1e-4 of the output's peak;
 3. the flagship RxChain on the card for 8 blocks of seeded noise with a
    carrier 1 kHz above channel 0's dial (USB): finite [1024, 2048]
-   audio per block, the 1 kHz beat recovered, one kernel launch per
-   block, and channels 0-7 equal (> 90 dB from block 2 on, FM by RMS)
-   to the same chain run on the CPU;
+   audio per block, the 1 kHz beat recovered, one front kernel launch
+   and one lookahead AGC kernel launch per block, and channels 0-7 equal
+   (> 90 dB from block 2 on, FM by RMS) to the same chain run on the CPU;
 4. timing with CUDA events after warm-up: ms per block, input Msps, the
    real-time factor, per-stage times, the device idle share of 10 steps
    traced by torch.profiler (1 - busy/span, busy the union of kernel and
    copy intervals; and 1 - busy/untraced step, without the profiler's
    host cost) with the front kernel's share of busy time, and per
    kernel its ms, the plain version's ms, the bound and a one-call
-   PyTorch yardstick;
+   PyTorch yardstick; then the lookahead AGC's kernel (csrc/agc_delay.cu,
+   from an RNG stream of its own, SEED + 13) against its plain route
+   (torch ops on the card) over 3 chained blocks at [1024, 2048] and
+   [8192, 2048] (output within 2e-5 of each row's peak, log gain within
+   5e-6, delay line bit for bit), timed at both beside the plain route
+   and its byte bound;
 5. the front kernel's gained and NB-detect modes at a small half-band
    shape (C=8, T=45, d=2, a block whose tile is not filled, kwidth 97) and
    at the flagship shape (avg_win 64, kwidth 961) over 3 streamed blocks
@@ -363,7 +368,8 @@ Phases, each fatal on failure:
     ``run`` at its default size on the card, every launch counter from 0
     before it and read after it, with its wall time, its ms a block on the
     host clock where it has blocks, and its own checks: the receiver (4
-    channels at 960 kS/s, unfused: no kernel launch) against the same
+    channels at 960 kS/s, unfused: no front kernel, the lookahead AGC's
+    kernel once a block) against the same
     program on the CPU, its WAV rows read back (SSB, AM, CW >= 60 dB from
     block 3, NFM by RMS within 0.5 dB); the channelizer (K=256, 8 blocks
     of 262 144 samples: kernels #4 and #6 8 launches each, the stations on
@@ -371,7 +377,7 @@ Phases, each fatal on failure:
     the three station channels), both kernels against their plain versions
     on its second block and timed there; the transceiver (loopback SSB and
     FM with CTCSS, PureSignal, the live Radio session): kTxAlc once a TX
-    step, IMD better by > 12 dB, the live session's S-meter above -40 dB
+    step and the lookahead AGC's kernel once a loopback RX step, IMD better by > 12 dB, the live session's S-meter above -40 dB
     and rho > 0.7 against the mic blocks it took, a 1 kHz tone through its
     SSB loopback at 1 kHz, kTxAlc bit-equal to its plain version on the
     SSB loopback's block-3 ALC input and timed at [1, 2048]; the wideband
@@ -389,7 +395,8 @@ Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
 another (SEED + 8), phase 29 from another (SEED + 5) and its edges from
 another (SEED + 6), phase 31 from another (SEED + 10), phase 32's
 flagship from another (SEED + 11) and its PFB input from another (SEED +
-12).  Phase 34 draws from none: each program makes its input from its own
+12), phase 4's lookahead AGC from another (SEED + 13).  Phase 34 draws
+from none: each program makes its input from its own
 seeds, as a user running it gets.
 
 Every check of the front kernel prints the launcher's tile for its shape
@@ -398,7 +405,8 @@ name and power limit and one
 JSON object of kernels (one entry per kernel and path shape: the front
 kernel's plain mode has one for the flagship, one for the NFM path and one
 for the flagship fed through DeviceFeed, kernels #4 and #6 one for the PFB
-receiver and one for it fed by the ingest plane, the PLL kernel and the
+receiver and one for it fed by the ingest plane, the lookahead AGC kernel
+one for the flagship and one at [8192, 2048], the PLL kernel and the
 AGC / ALC kernel one for each mode and one more for TxALC on the keyed
 Radio's live sources, kernels #1 and #4 one more each for the
 channel-sharded flagship and the time-sharded PFB step of phase 32, and
@@ -450,7 +458,7 @@ from quisk_tpu_torch.ops.fused_front import (fused_tune_decimate,
 from quisk_tpu_torch.ops import pfb_kernels as pk
 from quisk_tpu_torch.ops import agc_scan, diversity, pll
 from quisk_tpu_torch.ops.channelizer import PFBChannelizer, PFBRxPipeline
-from quisk_tpu_torch.ops.agc import HangAGC, TxALC, WcpAGC
+from quisk_tpu_torch.ops.agc import AGC, HangAGC, TxALC, WcpAGC, agc_delay
 from quisk_tpu_torch.ops.demod import PLLFMDemod, register_ext_demod
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR, PartitionedOLS
 from quisk_tpu_torch.ops.noise import SpectralNoiseBlanker
@@ -579,7 +587,7 @@ def wrappers() -> tuple:
             fused_tune_decimate_nb, pk.pfb_poly_oversampled,
             pk.pfb_poly_critical, pk.pfb_demod_call, pll.pll_sync_am,
             pll.pll_fm, agc_scan.tx_alc_scan, agc_scan.wcp_scan,
-            agc_scan.hang_scan)
+            agc_scan.hang_scan, agc_delay)
 
 
 def reset_launches() -> None:
@@ -824,8 +832,10 @@ def phase_main_path(report: dict, rng):
     st, audio = run_chain(chain, blocks)
     torch.cuda.synchronize()
     n = launches()
-    print(f"  main path: {N_BLOCKS} blocks, front launches {n}", flush=True)
+    print(f"  main path: {N_BLOCKS} blocks, front launches {n}, lookahead "
+          f"AGC launches {agc_delay.launches}", flush=True)
     assert n == {"plain": N_BLOCKS, "gained": 0, "nb": 0}, n
+    assert agc_delay.launches == N_BLOCKS, agc_delay.launches
     for a in audio:
         assert a.shape == (C, AUDIO_BLOCK) and a.dtype == torch.float32
         assert bool(torch.isfinite(a).all())
@@ -866,6 +876,7 @@ def phase_main_path(report: dict, rng):
     print(f"  card vs CPU chain, channels 0-7, blocks 2-3: min "
           f"{min(worst):.1f} dB", flush=True)
     report["main_path"] = {"blocks": N_BLOCKS, "launches": n,
+                           "agc_delay_launches": agc_delay.launches,
                            "beat_hz": f_peak, "beat_contrast_db": contrast,
                            "cpu_match_min_db": min(worst)}
     return chain, blocks, n["plain"]
@@ -971,6 +982,65 @@ def phase_timing(report: dict, smi: str, chain, blocks, kern: dict):
                         "realtime_factor": budget_ms / ms_block,
                         "stages_ms": stages, "idle": idle}
     return times
+
+
+AGC_DELAY_SHAPES = ((1024, AUDIO_BLOCK), (8192, AUDIO_BLOCK))
+
+
+def agc_delay_bound(rows: int, B: int, W: int) -> dict:
+    """The lookahead AGC's block: the audio and the delay line read and
+    the output and the new delay line written (4 B a sample), the log gain
+    read and written; operations ~15 a sample (|x|, the two window-max
+    passes and their max, clamp, divide, log, min, the fma of u, the
+    prefix min, two fma and a min for lg, exp, the product)."""
+    nbytes = rows * (2 * B + 2 * W + 2) * 4
+    return bound(nbytes, rows * B * 15)
+
+
+def phase_agc_delay(report: dict, smi: str) -> dict:
+    """csrc/agc_delay.cu against AGC.plain on the card at the flagship's
+    [1024, 2048] and [8192, 2048] over 3 chained blocks, and timed there
+    beside the plain route and its byte bound."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 13)
+    op = AGC.create(48000.0, device=dev)
+    scales = torch.tensor([1e-3, 0.1, 1.0, 30.0], device=dev)
+    print(f"the lookahead AGC kernel [{smi}]:", flush=True)
+    out = {}
+    for rows, B in AGC_DELAY_SHAPES:
+        sk = sp = op.init_state(rows)
+        worst = {"out": 0.0, "lg": 0.0, "abs": 0.0}
+        n0 = agc_delay.launches
+        for _ in range(3):
+            a = torch.as_tensor(rng.standard_normal((rows, B),
+                                                    dtype=np.float32),
+                                device=dev) * scales.repeat(rows // 4)[:, None]
+            (dk, lk), yk = op(sk, a)
+            (dp, lp), yp = op.plain(sp, a)
+            assert torch.equal(dk, dp)
+            peak = yp.abs().amax(-1, keepdim=True)
+            worst["out"] = max(worst["out"],
+                               float(((yk - yp).abs() / peak).max()))
+            worst["lg"] = max(worst["lg"], float((lk - lp).abs().max()))
+            worst["abs"] = max(worst["abs"], float((yk - yp).abs().max()))
+            sk, sp = (dk, lk), (dp, lp)
+        torch.cuda.synchronize()
+        assert agc_delay.launches == n0 + 3
+        assert worst["out"] <= 2e-5 and worst["lg"] <= 5e-6, worst
+        t = {"ms": cuda_ms(lambda: op(sk, a), 20),
+             "plain_ms": cuda_ms(lambda: op.plain(sp, a), 5),
+             **agc_delay_bound(rows, B, op.lookahead), "library_ms": None}
+        print(f"  agc_delay at [{rows}, {B}]: output within "
+              f"{worst['out']:.3e} of the row peak, log gain within "
+              f"{worst['lg']:.3e} of the plain route over 3 blocks; "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"none, bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+              f"({t['mbytes']:.1f} MB, {t['gflop']:.3f} GFLOP)", flush=True)
+        out[f"{rows}x{B}"] = {"max_rel_err": worst["out"],
+                              "max_lg_err": worst["lg"],
+                              "max_abs_err": worst["abs"], **t}
+    report["agc_delay"] = out
+    return out
 
 
 # ------------------------------------------------ gained / NB-detect kernels
@@ -5887,8 +5957,8 @@ def logged_calls(cls, name: str, keep):
     the list this yields; restored on exit."""
     fn, log = getattr(cls, name), []
 
-    def logged(self, *a):
-        out = fn(self, *a)
+    def logged(self, *a, **kw):
+        out = fn(self, *a, **kw)
         log.append(keep(self, a, out))
         return out
     setattr(cls, name, logged)
@@ -5932,7 +6002,8 @@ def ex_receiver(tmp: str, smi: str) -> dict:
     res, wall, counts = timed_program(
         lambda: trx.run(DEVICE, EX_RX_SECONDS, os.path.join(tmp, "rx")),
         "receiver (4 channels at 960 kS/s, unfused)", smi)
-    assert not counts, counts              # the reference's unfused front
+    # the reference's unfused front: no front kernel; the AGC's kernel
+    assert counts == {"agc_delay": res["blocks"]}, counts
     assert bool(np.isfinite(res["audio"]).all())
     one_thread(lambda: quietly(lambda: trx.run(
         "cpu", EX_RX_SECONDS, os.path.join(tmp, "rx_cpu"))))
@@ -6039,12 +6110,15 @@ def ex_transceiver(tmp: str, smi: str) -> dict:
     ttx = example("torch_demo_transceiver")
     # each TX step's (chain, state, mic block); each mic block handed out
     with logged_calls(TxChain, "step", lambda c, a, _: (c, *a)) as steps, \
-            logged_calls(AudioCapture, "get", lambda c, a, out: out) as mic:
+            logged_calls(AudioCapture, "get", lambda c, a, out: out) as mic, \
+            logged_calls(RxChain, "step",
+                         lambda c, a, _: isinstance(c.agc, AGC)) as rx_agc:
         res, wall, counts = timed_program(
             lambda: ttx.run(DEVICE, os.path.join(tmp, "tx")),
             "transceiver (loopback SSB and FM, PureSignal, live session)",
             smi)
-    assert counts == {"tx_alc_scan": len(steps)}, (counts, len(steps))
+    want = {"tx_alc_scan": len(steps), "agc_delay": sum(rx_agc)}
+    assert counts == {k: v for k, v in want.items() if v}, (counts, want)
     before, after = res["imd"]
     assert before - after > IMD_GAIN_DB, res["imd"]
     voice, audio, smeter = res["live"]
@@ -6223,7 +6297,9 @@ def main(argv=None) -> int:
     smi = phase_environment(report)
     kern = phase_kernel(report, rng)
     chain, blocks, n_plain = phase_main_path(report, rng)
+    n_agc = report["main_path"]["agc_delay_launches"]
     times = phase_timing(report, smi, chain, blocks, kern)
+    delay_times = phase_agc_delay(report, smi)
     gk = phase_gain_kernels(report, rng)
     featured, f_blocks, n_nb, n_gained = phase_featured(report, rng)
     nfm, n_blocks, k_nfm = phase_nfm(report, smi, rng)
@@ -6252,6 +6328,16 @@ def main(argv=None) -> int:
          "path": "featured", "launches": n_nb,
          "max_abs_err": gk["nb_err"], **gtimes["nb"]},
     ]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels += [
+        {"name": "agc_delay", "route": "cuda",
+         "source": "quisk_tpu_torch/csrc/agc_delay.cu",
+         "replaces": "none (quisk_tpu/ops/agc.py AGC: torch ops)",
+         "path": f"flagship at [{rows}, {B}]",
+         "launches": n_agc if rows == C else 3,
+         "max_abs_err": delay_times[f"{rows}x{B}"]["max_abs_err"],
+         **{k: delay_times[f"{rows}x{B}"][k] for k in timed}}
+        for rows, B in AGC_DELAY_SHAPES]
     del chain, featured, nfm, blocks, f_blocks, n_blocks, gk, kern
     torch.cuda.empty_cache()
     phase_pfb_kernels(report, rng)
@@ -6379,7 +6465,6 @@ def main(argv=None) -> int:
     # 34; their inputs are the programs' own seeded draws)
     ex = phase_examples(report, smi)
     ch, sv, tx = ex["channelizer"], ex["survey"], ex["transceiver"]
-    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels += [
         {**poly_os, "path": f"examples/torch_demo_channelizer.py "
                             f"(K={EX_PFB_K}, B={EX_PFB_K * 1024})",

@@ -4,9 +4,13 @@ Parity: the reference AGC (quisk.c:2162 ``process_agc``) keeps a ~15 ms
 lookahead buffer, tracks the max magnitude in it, drops gain at once on
 clip and releases exponentially.  In the log domain the per-sample
 recurrence is ``lg[n] = min(lg[n-1] + d, l[n])``, a composition of the
-associative maps ``x -> min(x + d, l)``, evaluated over the block in
-log-depth (Hillis-Steele doubling).  The lookahead envelope is a sliding
-maximum by the van Herk two-pass cummax.
+associative maps ``x -> min(x + d, l)``.  :class:`AGC` runs a block in
+one launch of ``csrc/agc_delay.cu`` on a card (:func:`agc_delay`: the
+delay line, the window max, the limit, the scan and the gain, one thread
+block a channel); on the CPU its plain version, :meth:`AGC.plain`, runs
+them as torch ops: the lookahead envelope a sliding maximum by the van
+Herk two-pass cummax, the scan evaluated over the block in log-depth
+(Hillis-Steele doubling).
 
 :class:`HangAGC` and :class:`WcpAGC` (wdsp/wcpAGC.c) carry a state machine
 that decides per sample, and so does the TX path's :class:`TxALC`
@@ -18,11 +22,14 @@ alone stays here as torch ops, once a block.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from quisk_tpu_torch import _kernels
 from quisk_tpu_torch._device import resolve_device
 from quisk_tpu_torch.ops.agc_scan import (WCP_COEF, hang_scan,
                                           tx_alc_scan, wcp_scan)
@@ -106,8 +113,18 @@ class AGC:
         return delay, lg
 
     def __call__(self, state, a: torch.Tensor):
-        """a [C, B] float audio -> gain-controlled audio, same shape; output
-        sample n is input sample n - lookahead."""
+        """a [C, B] float32 audio -> gain-controlled audio, same shape;
+        output sample n is input sample n - lookahead.  A CUDA tensor
+        launches the kernel (:func:`agc_delay`), a CPU tensor runs
+        :meth:`plain`; any other device raises."""
+        if a.device.type == "cpu":
+            check(self, state, a)
+            return self.plain(state, a)
+        return agc_delay(self, state, a)
+
+    def plain(self, state, a: torch.Tensor):
+        """The block as torch ops on any device: the delay line joined,
+        the window max, the limit and the doubling scan."""
         delay, lg_prev = state
         W = self.lookahead
         B = a.shape[-1]
@@ -117,6 +134,86 @@ class AGC:
         lg = min_scan(limit, self.release_inc, lg_prev)
         out = ext[:, :B] * torch.exp(lg)
         return (ext[:, ext.shape[-1] - W:], lg[:, -1]), out
+
+
+_ERR_BAD_SHAPE, _ERR_SHARED_MEMORY = -1, -2   # the launcher's error codes
+
+
+def check(op: AGC, state, a: torch.Tensor) -> tuple[int, int]:
+    """What both routes of :class:`AGC` check first: ``a`` [C, B] float32
+    with contiguous samples and rows that do not overlap, the state's
+    delay [C, lookahead] (the same) and log gain [C], float32, and the
+    0-dim float32 parameters, all on ``a``'s device.  Returns (C, B)."""
+    if a.dtype != torch.float32:
+        raise TypeError(f"audio must be torch.float32, got {a.dtype}")
+    if a.dim() != 2 or a.shape[1] < 1:
+        raise ValueError(f"audio must be [C, B] with B >= 1, got "
+                         f"{tuple(a.shape)}")
+    C, B = a.shape
+    delay, lg = state
+    for name, t, shape in (("audio", a, (C, B)),
+                           ("delay", delay, (C, op.lookahead))):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
+        if tuple(t.shape) != shape or t.device != a.device:
+            raise ValueError(f"{name} must be {shape} on {a.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        if (shape[1] > 1 and t.stride(1) != 1) or (
+                C > 1 and t.stride(0) < shape[1]):
+            raise ValueError(f"{name}: samples must be contiguous and rows "
+                             f"must not overlap")
+    if lg.dtype != torch.float32:
+        raise TypeError(f"log gain must be torch.float32, got {lg.dtype}")
+    if tuple(lg.shape) != (C,) or lg.device != a.device:
+        raise ValueError(f"log gain must be {(C,)} on {a.device}, got "
+                         f"{tuple(lg.shape)} on {lg.device}")
+    _kernels.check_tensors(a, {
+        name: (getattr(op, name), torch.float32, ())
+        for name in ("target", "max_lgain", "release_inc")})
+    return C, B
+
+
+@functools.cache
+def _launcher():
+    fn = _kernels.load("agc_delay").agc_delay
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [ptr, i64, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, ptr,
+                   ptr, i32, i32, i32, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def agc_delay(op: AGC, state, a: torch.Tensor):
+    """``op``'s block on ``a``'s CUDA device in one kernel launch
+    (``agc_delay.launches``): ((delay', lg'), out) as :meth:`AGC.plain`.
+    The parameters are read on the card, so nothing waits on it."""
+    if a.device.type != "cuda":
+        raise ValueError(f"agc_delay: no kernel for device {a.device}")
+    C, B = check(op, state, a)
+    delay, lg = state
+    W = op.lookahead
+    out = torch.empty((C, B), dtype=torch.float32, device=a.device)
+    d_out = torch.empty((C, W), dtype=torch.float32, device=a.device)
+    lg_out = torch.empty((C,), dtype=torch.float32, device=a.device)
+    err = _kernels.call(
+        a, _launcher(), a.data_ptr(), a.stride(0) if C > 1 else B,
+        delay.data_ptr(), delay.stride(0) if C > 1 else W, lg.data_ptr(),
+        lg.stride(0), op.target.data_ptr(), op.max_lgain.data_ptr(),
+        op.release_inc.data_ptr(), out.data_ptr(), d_out.data_ptr(),
+        lg_out.data_ptr(), C, W, B)
+    if err == _ERR_BAD_SHAPE:
+        raise ValueError(f"agc_delay: shape {(C, W, B)} outside the "
+                         f"kernel's limits")
+    if err == _ERR_SHARED_MEMORY:
+        raise ValueError(f"agc_delay: lookahead {W} + block {B} samples "
+                         f"need more shared memory than a block may have")
+    if err != 0:
+        raise RuntimeError(f"agc_delay launch failed: CUDA error {err}")
+    agc_delay.launches += 1
+    return (d_out, lg_out), out
+
+
+agc_delay.launches = 0
 
 
 def _gain_limit(ext_abs: torch.Tensor, W: int, B: int, target, max_lgain):
