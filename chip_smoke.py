@@ -2730,9 +2730,11 @@ def phase_spectrum(report: dict, smi: str, rng) -> None:
 
 
 # ------------------------------------------------------------------ slice 5
-# The PLL demods ride the receive chain's EXT slot (RxChainConfig.ext_demod,
-# MixedDemod.create calls the registered factory with (sample_rate,
-# channels, device)); the package registers nothing, so this script does.
+# The PLL demods ride the receive chain's EXT slot (RxChainConfig.ext_demod).
+# The chain builds "pll_fm" itself from its configuration (fm_deviation_hz,
+# ctcss_hz), as the benchmark's pllnfm192k cell does; sync AM is a factory
+# this script registers (MixedDemod.create calls it with (sample_rate,
+# channels, device)).
 PLL_FM_KW = dict(deviation_hz=5000.0, ctcss_hz=100.0)
 SYNC_AM_BW_HZ = 150.0
 SYNC_MODES = [int(Mode.USB), int(Mode.LSB), int(Mode.EXT), int(Mode.FM)]
@@ -2773,8 +2775,6 @@ DIV_RTOL = 1e-5
 
 
 def register_pll_demods() -> None:
-    register_ext_demod("pll_fm", lambda fs, ch, dev: PLLFMDemod.create(
-        fs, device=dev, **PLL_FM_KW))
     register_ext_demod("sync_am", lambda fs, ch, dev: SyncAMDemod.create(
         fs, bw_hz=SYNC_AM_BW_HZ, device=dev))
 
@@ -2903,7 +2903,9 @@ def phase_pll_kernel(report: dict, rng) -> None:
 
 
 def pll_nfm_config() -> RxChainConfig:
-    return dataclasses.replace(nfm_config(), ext_demod="pll_fm")
+    return dataclasses.replace(nfm_config(), ext_demod="pll_fm",
+                               fm_deviation_hz=PLL_FM_KW["deviation_hz"],
+                               ctcss_hz=PLL_FM_KW["ctcss_hz"])
 
 
 def sync_am_config() -> RxChainConfig:
@@ -2997,6 +2999,7 @@ def phase_pll_paths(report: dict, rng) -> dict:
     nfm = RxChain.create(pll_nfm_config(), tune_hz=tune_nfm,
                          mode=int(Mode.EXT), device=dev)
     assert isinstance(nfm.demod.ext, PLLFMDemod) and nfm.front.decim == 4
+    assert nfm.demod.ext.notch is not None
     n_blocks, voice = pll_nfm_blocks(rng, tune_nfm, PLL_BLOCKS,
                                      nfm.block_in)
     cpu = RxChain.create(dataclasses.replace(pll_nfm_config(), channels=8),

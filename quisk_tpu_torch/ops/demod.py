@@ -30,6 +30,7 @@ from quisk_tpu_torch._device import resolve_device
 from quisk_tpu_torch.modes import Mode
 from quisk_tpu_torch.ops.iir import Biquad, DCBlock, OnePole
 from quisk_tpu_torch.ops.pll import pll_fm
+from quisk_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +125,9 @@ class PLLFMDemod:
     An optional CTCSS notch removes the sub-audible tone (fmd.c snotch).
 
     State: (phase [C], freq [C], deemph y_prev [C], notch state or ()).
-    The loop runs in the PLL kernel's FM mode (ops/pll.py)."""
+    The loop runs in the PLL kernel's FM mode (ops/pll.py).  The loop, the
+    de-emphasis and the notch each run inside a span of their own
+    (``rx.pll``, ``rx.deemph``, ``rx.ctcss``)."""
 
     deemph: OnePole
     notch: Biquad | None
@@ -166,10 +169,13 @@ class PLLFMDemod:
 
     def __call__(self, state, x: torch.Tensor):
         phase0, freq0, de0, notch_st = state
-        (ph, fr), audio = pll_fm(x, (phase0, freq0), self.coef())
-        de0, audio = self.deemph(de0, audio)
+        with span("rx.pll"):
+            (ph, fr), audio = pll_fm(x, (phase0, freq0), self.coef())
+        with span("rx.deemph"):
+            de0, audio = self.deemph(de0, audio)
         if self.notch is not None:
-            notch_st, audio = self.notch(notch_st, audio)
+            with span("rx.ctcss"):
+                notch_st, audio = self.notch(notch_st, audio)
         return (ph, fr, de0, notch_st), audio
 
 
@@ -180,12 +186,26 @@ _EXT_DEMODS: dict[str, object] = {}
 
 
 def register_ext_demod(name: str, factory) -> None:
-    """factory(sample_rate, channels, device) -> demod op."""
+    """factory(sample_rate, channels, device) -> demod op.  ``"pll_fm"``
+    is built by :func:`make_ext_demod` from the chain's configuration; a
+    factory registered under that name is not used."""
     _EXT_DEMODS[name] = factory
 
 
 def get_ext_demod(name: str):
     return _EXT_DEMODS[name]
+
+
+def make_ext_demod(name: str, sample_rate: float, channels: int, device,
+                   deviation_hz: float = 5000.0, ctcss_hz: float = 0.0):
+    """The EXT demodulator ``name``: ``"pll_fm"`` is WDSP's FM receiver
+    (:class:`PLLFMDemod` at ``deviation_hz``, with the CTCSS notch at
+    ``ctcss_hz`` when it is above 0); any other name is the factory
+    registered under it (``KeyError`` if none is)."""
+    if name == "pll_fm":
+        return PLLFMDemod.create(sample_rate, deviation_hz=deviation_hz,
+                                 ctcss_hz=ctcss_hz, device=device)
+    return get_ext_demod(name)(sample_rate, channels, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,10 +228,11 @@ class MixedDemod:
     @classmethod
     def create(cls, mode, sample_rate: float, channels: int,
                fm_deviation_hz: float = 5000.0, ext_demod: str | None = None,
-               device=None):
+               device=None, ctcss_hz: float = 0.0):
         device = resolve_device(device)
         m_np = np.broadcast_to(np.asarray(mode, np.int32), (channels,))
-        ext = (get_ext_demod(ext_demod)(sample_rate, channels, device)
+        ext = (make_ext_demod(ext_demod, sample_rate, channels, device,
+                              fm_deviation_hz, ctcss_hz)
                if ext_demod else None)
         return cls(ssb=SSBDemod.create(device), am=AMDemod.create(device),
                    fm=FMDemod.create(sample_rate, device, fm_deviation_hz),

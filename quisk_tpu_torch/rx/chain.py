@@ -90,7 +90,12 @@ class RxChainConfig:
     ``noise_blanker``: 0 off, 1/2/3 the level.  ``front_cond`` builds the
     raw-IQ conditioner (trim set at runtime with ``cond.with_balance``);
     ``dc_remove_bw``: 0 off, 1 the window average, > 1 the one-pole DC
-    blocker of that bandwidth in Hz."""
+    blocker of that bandwidth in Hz.  ``ext_demod`` names the demodulator
+    of the ``Mode.EXT`` channels: ``"pll_fm"`` is WDSP's FM receiver
+    (wdsp/fmd.c: the PLL discriminator at ``fm_deviation_hz``, de-emphasis
+    and, where ``ctcss_hz`` is above 0, the CTCSS notch at that tone),
+    built from these fields; any other name is a factory registered with
+    ``ops.demod.register_ext_demod``."""
 
     sample_rate: float
     channels: int
@@ -111,6 +116,7 @@ class RxChainConfig:
     fm_squelch: bool = False
     fm_squelch_db: float = -60.0
     ext_demod: str | None = None
+    ctcss_hz: float = 0.0
     fused_frontend: bool = False
     front_cond: bool = False
     dc_remove_bw: int = 0
@@ -119,6 +125,9 @@ class RxChainConfig:
         if self.agc_profile not in ("delay", "wcp"):
             raise ValueError(f"agc_profile={self.agc_profile!r}: want "
                              f"'delay' or 'wcp'")
+        if self.ctcss_hz and self.ext_demod != "pll_fm":
+            raise ValueError(f"ctcss_hz={self.ctcss_hz!r}: the CTCSS notch "
+                             f"is the pll_fm demodulator's")
 
 
 def fuse_cascade(stage_specs):
@@ -233,7 +242,8 @@ class RxChain:
                 if plan.frac else None)
         demod = MixedDemod.create(modes, plan.fs_out, C,
                                   config.fm_deviation_hz,
-                                  ext_demod=config.ext_demod, device=device)
+                                  ext_demod=config.ext_demod, device=device,
+                                  ctcss_hz=config.ctcss_hz)
         agc = None
         if config.agc:
             kind = WcpAGC if config.agc_profile == "wcp" else AGC

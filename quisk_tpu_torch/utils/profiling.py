@@ -17,6 +17,8 @@ and nothing is recorded or written.  There is no switch.
   resampler, the FM squelch's RF measure), ``rx.demod``, then one span for
   each audio processor present (``rx.notch``, ``rx.anf``, ``rx.nr``,
   ``rx.agc``, ``rx.squelch``, ``rx.fm_sq``), each with its blend;
+- ``rx.pll``, ``rx.deemph``, ``rx.ctcss``: inside ``rx.demod``, the PLL FM
+  demodulator's loop, de-emphasis and CTCSS notch (``PLLFMDemod``);
 - ``pfb.step``: ``PFBRxPipeline.__call__``; inside it ``pfb.poly``, then
   ``pfb.stage1`` (kernel route) or ``pfb.dft`` (torch-op route), then
   ``pfb.demod`` and ``pfb.power``;
@@ -34,7 +36,8 @@ import torch
 PREFIX = "quisk."
 SPANS = (
     "rx.step", "rx.front", "rx.filter", "rx.demod", "rx.notch", "rx.anf",
-    "rx.nr", "rx.agc", "rx.squelch", "rx.fm_sq",
+    "rx.nr", "rx.agc", "rx.squelch", "rx.fm_sq", "rx.pll", "rx.deemph",
+    "rx.ctcss",
     "pfb.step", "pfb.poly", "pfb.stage1", "pfb.dft", "pfb.demod",
     "pfb.power",
     "feed.copy", "feed.stage", "feed.ring_wait",

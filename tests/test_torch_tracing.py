@@ -208,8 +208,12 @@ def test_feed_staging_spans():
 def test_every_emitted_name_is_listed():
     emitted = set()
     ch = _chain(sample_rate=192e3, channels=4, audio_block=512, **FEATURED)
+    pll = _chain(sample_rate=192e3, channels=4, audio_block=512,
+                 ext_demod="pll_fm", ctcss_hz=100.0)
     for fn in (lambda: ch.step(ch.init_state(),
                                _iq((ch.channels, ch.block_in))),
+               lambda: pll.step(pll.init_state(),
+                                _iq((pll.channels, pll.block_in))),
                lambda: _pipe(False)(_pipe(False).init_state(1),
                                     _iq((1, 16384))),
                lambda: _pipe(True)(_pipe(True).init_state(1),
