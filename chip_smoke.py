@@ -187,15 +187,24 @@ Phases, each fatal on failure:
     the sync-AM flagship (flagship_config with ext_demod="sync_am", bw
     150 Hz; modes USB/LSB/EXT/FM; an AM station 40 Hz off its carrier on
     every EXT row) for 6 blocks each: one front and one PLL launch a
-    block, rows 0-7 against the CPU chain started from the card chain's
-    state at block 2 (> 90 dB, FM rows by RMS), the squelch open on the
+    block, and on the PLL-NFM path one launch of the CTCSS notch's kernel
+    (csrc/biquad.cu) a block, rows 0-7 against the CPU chain started from
+    the card chain's state at block 2 (> 90 dB, FM rows by RMS), the
+    squelch open on the
     station rows only, the CTCSS line under the voice on row 0, the voice
     recovered on row 2 (> 6 dB); the kernel against its plain version on
     each path's own [1024, 2048] demod input (bit-equal, asserted), with
     the exact zeros in it and in the first block from an empty history;
 22. timing of both paths (events, host clock, idle share), the PLL-NFM
     step's stages by CUDA events, and the kernel in both modes
-    with its plain version and bound;
+    with its plain version and bound; then the CTCSS notch's kernel
+    (csrc/biquad.cu, from a stream of its own, SEED + 14) against its
+    plain route (the float64 log-step scan as torch ops) over 3 chained
+    blocks at [1024, 2048] and [8192, 2048], both from the kernel's state
+    each block (output within 2e-7 of each row's peak and >= 130 dB, the
+    carried samples bit for bit), timed at both (replayed from a CUDA
+    graph, the device's time, and call by call through the wrapper) beside
+    the plain route and its byte bound;
 23. the spectral noise blanker ([1024, 2048] audio with impulses, fft
     256), PartitionedOLS (10001 taps, block 512, C=1024: the FDL is 168
     MB) and the diversity combiner ([1024, 2, 2048], null-steering
@@ -395,7 +404,8 @@ Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
 another (SEED + 8), phase 29 from another (SEED + 5) and its edges from
 another (SEED + 6), phase 31 from another (SEED + 10), phase 32's
 flagship from another (SEED + 11) and its PFB input from another (SEED +
-12), phase 4's lookahead AGC from another (SEED + 13).  Phase 34 draws
+12), phase 4's lookahead AGC from another (SEED + 13), phase 22's
+CTCSS notch from another (SEED + 14).  Phase 34 draws
 from none: each program makes its input from its own
 seeds, as a user running it gets.
 
@@ -461,6 +471,7 @@ from quisk_tpu_torch.ops.channelizer import PFBChannelizer, PFBRxPipeline
 from quisk_tpu_torch.ops.agc import AGC, HangAGC, TxALC, WcpAGC, agc_delay
 from quisk_tpu_torch.ops.demod import PLLFMDemod, register_ext_demod
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR, PartitionedOLS
+from quisk_tpu_torch.ops.iir import Biquad, biquad_df1
 from quisk_tpu_torch.ops.noise import SpectralNoiseBlanker
 from quisk_tpu_torch.ops.nr import SyncAMDemod
 from quisk_tpu_torch.ops.spectrum import (SpectrumAnalyzer, ZoomSpectrum,
@@ -546,6 +557,29 @@ def snr_db(ref, got) -> float:
                                   / torch.mean(torch.abs(err) ** 2)))
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """ms a call of ``fn`` replayed from a CUDA graph of ``iters`` calls:
+    the device's time without the host's cost of each launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of fn() over iters calls, by CUDA events."""
     for _ in range(warmup):
@@ -587,7 +621,7 @@ def wrappers() -> tuple:
             fused_tune_decimate_nb, pk.pfb_poly_oversampled,
             pk.pfb_poly_critical, pk.pfb_demod_call, pll.pll_sync_am,
             pll.pll_fm, agc_scan.tx_alc_scan, agc_scan.wcp_scan,
-            agc_scan.hang_scan, agc_delay)
+            agc_scan.hang_scan, agc_delay, biquad_df1)
 
 
 def reset_launches() -> None:
@@ -2952,7 +2986,7 @@ def sync_am_blocks(rng, nblk: int, B: int):
 
 def run_pll_path(label: str, chain, cpu, blocks, modes, strict_rows):
     """The path on the card for every block (one front and one PLL launch
-    a block), then the CPU chain from the card's rows 0-7 state at block
+    a block, and one notch launch on the PLL-NFM path), then the CPU chain from the card's rows 0-7 state at block
     PLL_CARRY_AT, compared on rows 0-7."""
     reset_launches()
     st = chain.init_state()
@@ -2969,6 +3003,10 @@ def run_pll_path(label: str, chain, cpu, blocks, modes, strict_rows):
     mode = "pll_fm" if isinstance(chain.demod.ext, PLLFMDemod) else "sync_am"
     assert n == {"plain": len(blocks), "gained": 0, "nb": 0}, n
     assert npll == {"sync_am": 0, "pll_fm": 0, mode: len(blocks)}, npll
+    # the CTCSS notch: one biquad launch a block where the path has one
+    notched = mode == "pll_fm" and chain.demod.ext.notch is not None
+    assert biquad_df1.launches == (len(blocks) if notched else 0), \
+        biquad_df1.launches
     for a in audio:
         assert a.shape == (C, AUDIO_BLOCK) and bool(torch.isfinite(a).all())
 
@@ -2983,6 +3021,7 @@ def run_pll_path(label: str, chain, cpu, blocks, modes, strict_rows):
     match = compare_with_cpu(audio[PLL_CARRY_AT:], cpu_audio, modes[:8], 0,
                              CPU_MATCH_DB, label, strict_rows=strict_rows)
     return st, audio, {"launches": n, "pll_launches": npll,
+                       "biquad_launches": biquad_df1.launches,
                        "cpu_match": match}
 
 
@@ -3078,7 +3117,8 @@ def phase_pll_paths(report: dict, rng) -> dict:
     return {"nfm": nfm, "nfm_blocks": n_blocks, "sync": sync,
             "sync_blocks": s_blocks, "kern": kern,
             "launches": {"pll_fm": nres["pll_launches"]["pll_fm"],
-                         "sync_am": sres["pll_launches"]["sync_am"]}}
+                         "sync_am": sres["pll_launches"]["sync_am"],
+                         "biquad": nres["biquad_launches"]}}
 
 
 def pll_bound(C_: int, B: int, mode: str) -> dict:
@@ -3164,6 +3204,68 @@ def phase_timing_pll(report: dict, smi: str, paths: dict) -> dict:
     report["timing_pll"] = out
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {m: {k: t[k] for k in keys} for m, t in times.items()}
+
+
+BIQUAD_SHAPES = ((1024, AUDIO_BLOCK), (8192, AUDIO_BLOCK))
+
+
+def biquad_bound(rows: int, B: int) -> dict:
+    """The notch's block: the audio read and the output written (4 B a
+    sample each), the state read and written; operations 9 a sample (the
+    feedforward product and two fma, the two fma of the feedback, the two
+    conversions), float64, counted at the float32 peak like the others
+    (the bytes bind either way: at float64's 34 TFLOP/s, 0.0044 ms at
+    [8192, 2048])."""
+    return bound(rows * (2 * B + 8) * 4, rows * B * 9)
+
+
+def phase_biquad(report: dict, smi: str) -> dict:
+    """csrc/biquad.cu (the PLL-NFM path's CTCSS notch) against Biquad.plain
+    on the card at [1024, 2048] and [8192, 2048] over 3 chained blocks,
+    both routes from the kernel's state each block (a float32 state an ulp
+    apart rings through this pole pair's next ~800 samples), and timed
+    there beside the plain route and its byte bound."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 14)
+    op = Biquad.notch(100.0, 48000.0, dev, q=5.0)
+    print(f"the CTCSS notch's kernel [{smi}]:", flush=True)
+    out = {}
+    for rows, B in BIQUAD_SHAPES:
+        t = torch.arange(B, device=dev) / 48000.0
+        st = op.init_state(rows)
+        worst = {"rel": 0.0, "abs": 0.0, "db": np.inf}
+        n0 = biquad_df1.launches
+        for _ in range(3):
+            x = (0.5 * torch.sin(2 * np.pi * 100.0 * t)
+                 + 0.3 * torch.as_tensor(rng.standard_normal(
+                     (rows, B), dtype=np.float32), device=dev))
+            (sk, yk), (sp, yp) = op(st, x), op.plain(st, x)
+            assert torch.equal(sk[0], sp[0]) and torch.equal(sk[1], sp[1])
+            peak = yp.abs().amax(-1, keepdim=True)
+            worst["rel"] = max(worst["rel"],
+                               float(((yk - yp).abs() / peak).max()))
+            worst["abs"] = max(worst["abs"], float((yk - yp).abs().max()))
+            worst["db"] = min(worst["db"], snr_db(yp, yk))
+            st = sk
+        torch.cuda.synchronize()
+        assert biquad_df1.launches == n0 + 3
+        assert worst["rel"] <= 2e-7 and worst["db"] >= 130.0, worst
+        t = {"ms": graph_ms(lambda: op(st, x)),
+             "call_ms": cuda_ms(lambda: op(st, x), 20),
+             "plain_ms": cuda_ms(lambda: op.plain(st, x), 5),
+             **biquad_bound(rows, B), "library_ms": None}
+        print(f"  biquad_df1 at [{rows}, {B}]: output within "
+              f"{worst['rel']:.3e} of the row peak ({worst['db']:.1f} dB) "
+              f"of the plain route over 3 blocks; {t['ms']:.4f} ms "
+              f"(from a CUDA graph; {t['call_ms']:.4f} call by call), plain "
+              f"{t['plain_ms']:.4f} ms, library none, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+              f"({t['mbytes']:.1f} MB, {t['gflop']:.3f} GFLOP)", flush=True)
+        out[f"{rows}x{B}"] = {"max_rel_err": worst["rel"],
+                              "max_abs_err": worst["abs"],
+                              "snr_db": worst["db"], **t}
+    report["biquad"] = out
+    return out
 
 
 def check_pll_bits(mode: str, x, st, coef) -> dict:
@@ -6383,6 +6485,7 @@ def main(argv=None) -> int:
     phase_pll_kernel(report, rng_s5)
     paths = phase_pll_paths(report, rng_s5)
     pll_times = phase_timing_pll(report, smi, paths)
+    biquad_times = phase_biquad(report, smi)
     # the PLL kernel's edges, from a stream of their own
     pll_edges(report, smi)
     kernels += [
@@ -6397,6 +6500,16 @@ def main(argv=None) -> int:
          "max_abs_err": paths["kern"]["pll_fm"]["max_abs_err"],
          **pll_times["pll_fm"]},
     ]
+    kernels += [
+        {"name": "biquad_df1", "route": "cuda",
+         "source": "quisk_tpu_torch/csrc/biquad.cu",
+         "replaces": "none (quisk_tpu/ops/iir.py Biquad: lax."
+                     "associative_scan)",
+         "path": f"PLL-NFM's CTCSS notch at [{rows}, {B}]",
+         "launches": paths["launches"]["biquad"] if rows == C else 3,
+         "max_abs_err": biquad_times[f"{rows}x{B}"]["max_abs_err"],
+         **{k: biquad_times[f"{rows}x{B}"][k] for k in timed}}
+        for rows, B in BIQUAD_SHAPES]
     del paths
     torch.cuda.empty_cache()
     phase_slice5_ops(report, smi, rng_s5)

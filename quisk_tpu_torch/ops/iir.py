@@ -8,19 +8,25 @@ the last output sample.  Long blocks (B >= 2048, B % 128 == 0, scalar
 ``a``) take the chunked form of ``quisk_tpu.ops.iir``: a [128, 128]
 lower-triangular decay matmul within chunks plus a short scan over chunk
 carries, so the sums group as the reference's do; ``apply_tm`` is the same with
-time on axis -2 and channels last.  :class:`Biquad` runs
-the same log-step scan over 2x2 affine maps, in float64.  The TX path's
+time on axis -2 and channels last.  :class:`Biquad` runs in one launch
+of ``csrc/biquad.cu`` on a card (:func:`biquad_df1`: the direct form I
+recurrence in float64, one thread a channel); on the CPU its plain
+version, :meth:`Biquad.plain`, runs the same log-step scan over 2x2 affine
+maps, in float64.  The TX path's
 :class:`Preemphasis` is a first difference and :class:`PhaseRotator` a
 cascade of first-order allpass sections on the same scan.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from quisk_tpu_torch import _kernels
 from quisk_tpu_torch._device import resolve_device
 
 
@@ -203,18 +209,21 @@ def _rbj(b0, b1, b2, a1, a2, a0, device) -> "Biquad":
 
 @dataclasses.dataclass(frozen=True)
 class Biquad:
-    """Second-order IIR section (direct form I) as a parallel recurrence
-    (wdsp/iir.c snotch / speak / mpeak).  The feedback pair
+    """Second-order IIR section (direct form I, wdsp/iir.c snotch / speak /
+    mpeak).  On a card one kernel launch a block steps the recurrence a
+    sample at a time, one thread a channel (:func:`biquad_df1`).  The plain
+    version runs it as a parallel recurrence: the feedback pair
     (y[n-1], y[n-2]) evolves linearly, s[n] = A s[n-1] + [f[n], 0], so the
     block is a log-step scan over 2x2 affine maps.  A is the same at every
     step: its running products A^(n+1) are scanned once per block as
     [B, 2, 2] and shared by all channels.
 
-    The feedforward sum and the scan are carried in float64 and the output
-    rounded to float32: in float32 the zeros' cancellation and the matrix
-    powers of a pole pair near the unit circle lose every digit (the CTCSS notch, 100 Hz at q=5 and 48 kS/s, came out ~1 dB
-    from the float64 recurrence on noise; the JAX op's float32 scan, in
-    another tree order, ~26 dB).
+    Both routes carry the feedforward sum and the recurrence in float64 and
+    round the output and the state to float32: in float32 the zeros'
+    cancellation and the matrix powers of a pole pair near the unit circle
+    lose every digit (the CTCSS notch, 100 Hz at q=5 and 48 kS/s, came out
+    ~1 dB from the float64 recurrence on noise; the JAX op's float32 scan,
+    in another tree order, ~26 dB).
 
     State: (x1, x2, y1, y2), each [C] float32."""
 
@@ -258,12 +267,26 @@ class Biquad:
         return (z, z, z, z)
 
     def __call__(self, state, x: torch.Tensor):
+        """x [C, B] float32 -> the section's output, same shape.  A CUDA
+        tensor launches the kernel (:func:`biquad_df1`), a CPU tensor runs
+        :meth:`plain`; any other device raises."""
+        if x.device.type == "cpu":
+            check(self, state, x)
+            return self.plain(state, x)
+        return biquad_df1(self, state, x)
+
+    def coefs(self) -> tuple:
+        """(b0, b1, b2, a1, a2), the order the kernel takes them in."""
+        return self.b0, self.b1, self.b2, self.a1, self.a2
+
+    def plain(self, state, x: torch.Tensor):
+        """The block as torch ops on any device: the feedforward sum and
+        the log-step scan of the feedback pair, in float64."""
         x1, x2, y1, y2 = state
         B = x.shape[-1]
         xm1 = torch.cat([x1[:, None], x[:, :-1]], dim=-1)
-        xm2 = torch.cat([x2[:, None], x1[:, None], x[:, :-2]], dim=-1)
-        b0, b1, b2, a1, a2 = (c.double() for c in (self.b0, self.b1, self.b2,
-                                                   self.a1, self.a2))
+        xm2 = torch.cat([x2[:, None], xm1[:, :-1]], dim=-1)
+        b0, b1, b2, a1, a2 = (c.double() for c in self.coefs())
         f = b0 * x.double() + b1 * xm1.double() + b2 * xm2.double()
         one, zero = torch.ones_like(a1), torch.zeros_like(a1)
         A = torch.stack([torch.stack([-a1, -a2]),
@@ -277,7 +300,75 @@ class Biquad:
             s *= 2
         s0 = torch.stack([y1, y2], dim=-1).double()          # [C, 2]
         y = (torch.einsum("bij,cj->cbi", A, s0) + bv)[..., 0].float()
-        return (x[:, -1], x[:, -2], y[:, -1], y[:, -2]), y
+        y2n = torch.cat([y1[:, None], y[:, -2:]], dim=-1)[:, -2]
+        return (x[:, -1], xm1[:, -1], y[:, -1], y2n), y
+
+
+_ERR_BAD_SHAPE = -1                          # the launcher's error code
+
+
+def check(op: Biquad, state, x: torch.Tensor) -> tuple[int, int]:
+    """What both routes of :class:`Biquad` check first: ``x`` [C, B]
+    float32 (C, B >= 1) with contiguous samples (any row stride), the
+    state's four [C] float32 tensors and the five 0-dim float32
+    coefficients, all on ``x``'s device.  Returns (C, B)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"samples must be torch.float32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"samples must be [C, B] with C, B >= 1, got "
+                         f"{tuple(x.shape)}")
+    C, B = x.shape
+    if B > 1 and x.stride(1) != 1:
+        raise ValueError("samples must be contiguous along the block")
+    if len(state) != 4:
+        raise ValueError(f"state must be (x1, x2, y1, y2), got "
+                         f"{len(state)} tensors")
+    for name, t in zip(("x1", "x2", "y1", "y2"), state):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
+        if tuple(t.shape) != (C,) or t.device != x.device:
+            raise ValueError(f"{name} must be {(C,)} on {x.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    _kernels.check_tensors(x, {
+        name: (c, torch.float32, ())
+        for name, c in zip(("b0", "b1", "b2", "a1", "a2"), op.coefs())})
+    return C, B
+
+
+@functools.cache
+def _launcher():
+    fn = _kernels.load("biquad").biquad_df1
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [ptr, i64] + [ptr, i64] * 4 + [ptr] * 7 + [i32, i32, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def biquad_df1(op: Biquad, state, x: torch.Tensor):
+    """``op``'s block on ``x``'s CUDA device in one kernel launch
+    (``biquad_df1.launches``): ((x1', x2', y1', y2'), y) as
+    :meth:`Biquad.plain`.  The coefficients are read on the card, so
+    nothing waits on it."""
+    if x.device.type != "cuda":
+        raise ValueError(f"biquad_df1: no kernel for device {x.device}")
+    C, B = check(op, state, x)
+    y = torch.empty((C, B), dtype=torch.float32, device=x.device)
+    st = torch.empty((4, C), dtype=torch.float32, device=x.device)
+    err = _kernels.call(
+        x, _launcher(), x.data_ptr(), x.stride(0) if C > 1 else B,
+        *(v for t in state for v in (t.data_ptr(), t.stride(0))),
+        *(c.data_ptr() for c in op.coefs()), y.data_ptr(), st.data_ptr(),
+        C, B)
+    if err == _ERR_BAD_SHAPE:
+        raise ValueError(f"biquad_df1: shape {(C, B)} outside the kernel's "
+                         f"limits")
+    if err != 0:
+        raise RuntimeError(f"biquad_df1 launch failed: CUDA error {err}")
+    biquad_df1.launches += 1
+    return tuple(st.unbind(0)), y
+
+
+biquad_df1.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
