@@ -25,6 +25,12 @@ each device block is marked as used by the compute stream
 step is done with it.  Nothing falls back to a synchronous pageable copy:
 where memory cannot be pinned, pinning raises.
 
+How far the host runs ahead of the card is decided here alone: block N's
+step is launched once block N-1's has finished.  No step waits on the
+card, so a caller keeping blocks in flight would otherwise queue them all,
+and a listener would hear each block that many steps late (one step
+queued already costs a closed loop a block period of latency).
+
 Usage::
 
     feed = DeviceFeed(stepf, state, prefetch=1)
@@ -61,7 +67,8 @@ class DeviceFeed:
 
     ``prefetch=0`` is the serial loop: copy a block, then step it.
     ``prefetch=1`` (default) double-buffers: one block's copy overlaps the
-    step before it.  Outputs come back un-synced, in input order.
+    step before it.  Outputs come back in input order; on the card all
+    but the newest have finished (the module's run-ahead bound).
     ``staging_s`` and ``staged_bytes`` count the host memcpy into the
     pinned ring (numpy and pageable input only)."""
 
@@ -80,14 +87,12 @@ class DeviceFeed:
             self._ring: list = [None] * (self.prefetch + 1)
             self._ring_ev: list = [None] * (self.prefetch + 1)
             self._slot = 0
+        self._step_ev = None             # the last step's event (card)
 
     def push(self, x_host) -> list:
         """Enqueue one host block; returns any outputs that became due."""
         self._q.append(self._put(x_host))
-        outs = []
-        while len(self._q) > self.prefetch:
-            outs.append(self._run(*self._q.popleft()))
-        return outs
+        return self._drain(self.prefetch)
 
     def push_into(self, shape, dtype, fill) -> list | None:
         """Enqueue one block that ``fill(buf)`` writes in place into a host
@@ -105,25 +110,31 @@ class DeviceFeed:
         if fill(buf) is None:
             return None
         self._q.append(self._put(buf))
-        outs = []
-        while len(self._q) > self.prefetch:
-            outs.append(self._run(*self._q.popleft()))
-        return outs
+        return self._drain(self.prefetch)
 
     def flush(self) -> list:
         """Drain the in-flight blocks; returns their outputs."""
-        outs = []
-        while self._q:
-            outs.append(self._run(*self._q.popleft()))
-        return outs
+        return self._drain(0)
 
     # ------------------------------------------------------------ internals
+    def _drain(self, keep: int) -> list:
+        """Step queued blocks until ``keep`` are left; their outputs."""
+        return [self._run(*self._q.popleft())
+                for _ in range(len(self._q) - keep)]
+
     def _run(self, x, ev):
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
         if ev is not None:
-            stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ev)
             x.record_stream(stream)
+        if self._step_ev is not None:    # the run-ahead bound
+            with span("feed.step_wait"):
+                self._step_ev.synchronize()
         self.state, y = self.stepf(self.state, x)
+        if stream is not None:
+            self._step_ev = torch.cuda.Event()
+            self._step_ev.record(stream)
         return y
 
     def _put(self, x_host):

@@ -367,8 +367,10 @@ class PFBRxPipeline:
                     a_dc=self.a_dc, a_de=self.a_de, b_de=self.b_de)
             if self.with_spectrum:
                 with span("pfb.power"):
-                    pos = torch.as_tensor(self.chan_pos, device=x.device)
-                    spec = (spec_sum.reshape(S, -1) * (1.0 / n_out))[:, pos]
+                    # position c1*K2 + c2 holds channel c1 + K1*c2, so
+                    # channel order is the planes' transpose
+                    spec = ((spec_sum * (1.0 / n_out)).transpose(1, 2)
+                            .reshape(S, -1))
             else:
                 spec = torch.zeros((S, 1), dtype=torch.float32,
                                    device=x.device)

@@ -15,9 +15,9 @@ of samples), exactly to float32 rounding in two fp32 matmul levels, as
    over the sub-blocks' end states (one [J, J] triangular matmul) and are
    blended back as ``alpha^(i+1) * carry``.
 
-The weights are built in float64 and rounded once.
-``ops/iir._first_order_chunked`` is the sibling that takes its
-coefficient as a tensor.
+The weights are built in float64 and rounded once, on every call.
+``ops/iir.FirstOrder`` is the sibling that takes its coefficient as a
+tensor and builds its constants once, when its op is made.
 """
 
 from __future__ import annotations

@@ -4,17 +4,17 @@ One-pole filters sit in the demod chain: AM DC removal (quisk.c:2002-2025)
 and FM de-emphasis (quisk.c:2057-2064).  ``y[n] = a*y[n-1] + b*x[n]`` is
 a composition of affine maps, evaluated over the block axis in log-depth
 (Hillis-Steele doubling), vectorised over channels; the carried state is
-the last output sample.  Long blocks (B >= 2048, B % 128 == 0, scalar
-``a``) take the chunked form of ``quisk_tpu.ops.iir``: a [128, 128]
-lower-triangular decay matmul within chunks plus a short scan over chunk
-carries, so the sums group as the reference's do; ``apply_tm`` is the same with
-time on axis -2 and channels last.  :class:`Biquad` runs in one launch
-of ``csrc/biquad.cu`` on a card (:func:`biquad_df1`: the direct form I
-recurrence in float64, one thread a channel); on the CPU its plain
+the last output sample.  :class:`FirstOrder` runs it channel-major or
+time-major (``apply_tm``), long blocks in the chunked form of
+``quisk_tpu.ops.iir`` (the sums grouped as the reference's), with
+constants that :class:`OnePole`, :class:`DCBlock` and
+:class:`PhaseRotator` build once, when made.  :class:`Biquad` runs in one
+launch of ``csrc/biquad.cu`` on a card (:func:`biquad_df1`: the direct
+form I recurrence in float64, one thread a channel); on the CPU its plain
 version, :meth:`Biquad.plain`, runs the same log-step scan over 2x2 affine
-maps, in float64.  The TX path's
-:class:`Preemphasis` is a first difference and :class:`PhaseRotator` a
-cascade of first-order allpass sections on the same scan.
+maps, in float64.  The TX path's :class:`Preemphasis` is a first
+difference and :class:`PhaseRotator` a cascade of first-order allpass
+sections on the same scan.
 """
 
 from __future__ import annotations
@@ -46,110 +46,87 @@ def affine_scan(A: torch.Tensor, Bv: torch.Tensor, dim: int = -1):
     return A, Bv
 
 
-def first_order_scan(x: torch.Tensor, a, b, y_prev: torch.Tensor):
-    """All outputs of y[n] = a*y[n-1] + b*x[n] given y[-1] = y_prev.
-
-    x [C, B]; a, b scalar (0-dim tensor or float) or [C, 1]; y_prev [C].
-    """
-    a_t = torch.as_tensor(a, dtype=x.dtype, device=x.device)
-    B = x.shape[-1]
-    if a_t.ndim == 0 and B >= 2048 and B % 128 == 0:
-        return _first_order_chunked(x, a_t, b, y_prev)
-    A = torch.broadcast_to(a_t, x.shape)
-    Bv = torch.as_tensor(b, dtype=x.dtype, device=x.device) * x
-    A_cum, B_cum = affine_scan(A, Bv)
-    return B_cum + A_cum * y_prev[:, None]
+_L = 128                                    # the chunked form's chunk
 
 
-def _first_order_chunked(x: torch.Tensor, a: torch.Tensor, b,
-                         y_prev: torch.Tensor, L: int = 128) -> torch.Tensor:
-    """Chunked y[n] = a*y[n-1] + b*x[n] (scalar a).
+@dataclasses.dataclass(frozen=True)
+class FirstOrder:
+    """y[n] = a*y[n-1] + b*x[n] along axis ``dim`` of x: -1 (x [C, B],
+    y_prev [C]) or -2, time-major (x [..., T, C], y_prev [..., C]).  With
+    scalar ``a``, >= 2048 samples, a multiple of L, it is chunked: in chunk
+    j (carry c_j) y[n] = a^(n+1) c_j + sum_k T[n, k] u[k], T = a^(n-k) on
+    and below the diagonal, and c_{j+1} = a^L c_j + e_j, a short affine
+    scan; else the log-step scan.  Powers are |a|^d sign(a)^d: a float
+    power of a negative base is NaN."""
 
-    Within chunk j (start carry c_j): y[n] = a^(n+1) c_j + sum_k a^(n-k)
-    u[k], the sum an fp32 matmul with T[n, k] = a^(n-k); the carries follow
-    c_{j+1} = a^L c_j + e_j, a (B/L)-long affine scan.  Powers are built as
-    |a|^d * sign(a)^d, since a float power of a negative base is NaN.
-    """
-    C, B = x.shape
-    nch = B // L
-    dt, dev = x.dtype, x.device
-    u = (torch.as_tensor(b, dtype=dt, device=dev) * x).reshape(C, nch, L)
-    n = torch.arange(L, device=dev)
-    d = n[:, None] - n[None, :]
-    dm = torch.clamp(d, min=0).to(dt)
-    one = torch.ones((), dtype=dt, device=dev)
-    sgn = torch.where(a < 0, -one, one)
-    mag = torch.abs(a)
-    pw = (mag ** dm) * torch.where(dm % 2 == 0, one, sgn)
-    T = torch.where(d >= 0, pw, torch.zeros((), dtype=dt, device=dev))
-    yin = torch.matmul(u, T.T)                              # [C, nch, L]
-    e = yin[:, :, -1]
-    aL = (mag ** L) * (sgn ** (L % 2) if L % 2 else 1.0)
-    Aj = torch.broadcast_to(aL, (C, nch))
-    Acum, Ecum = affine_scan(Aj, e)
-    s = Ecum + Acum * y_prev[:, None]                        # chunk end states
-    c = torch.cat([y_prev[:, None], s[:, :-1]], dim=-1)
-    n1 = (n + 1).to(dt)
-    decay = (mag ** n1) * torch.where((n + 1) % 2 == 0, one, sgn)
-    y = yin + c[:, :, None] * decay[None, None, :]
-    return y.reshape(C, B)
+    a: torch.Tensor
+    b: torch.Tensor
+    T: torch.Tensor | None = None
+    decay: torch.Tensor | None = None
+    aL: torch.Tensor | None = None
+
+    @classmethod
+    def create(cls, a, b, like: torch.Tensor) -> "FirstOrder":
+        """a, b, T, the decay a^(n+1) and a^L in ``like``'s dtype and on
+        its device."""
+        dt, dev = like.dtype, like.device
+        a = torch.as_tensor(a, dtype=dt, device=dev)
+        b = torch.as_tensor(b, dtype=dt, device=dev)
+        if a.ndim:
+            return cls(a, b)
+        n = torch.arange(_L, device=dev)
+        d, n1 = n[:, None] - n[None, :], n + 1
+        dm = torch.clamp(d, min=0).to(dt)
+        one = torch.ones((), dtype=dt, device=dev)
+        sgn, mag = torch.where(a < 0, -one, one), torch.abs(a)
+        pw = (mag ** dm) * torch.where(dm % 2 == 0, one, sgn)
+        T = torch.where(d >= 0, pw, torch.zeros_like(pw))
+        decay = (mag ** n1.to(dt)) * torch.where(n1 % 2 == 0, one, sgn)
+        return cls(a, b, T, decay, mag ** _L)            # L even: |a|^L
+
+    def __call__(self, x: torch.Tensor, y_prev: torch.Tensor,
+                 dim: int = -1) -> torch.Tensor:
+        n = x.shape[dim]
+        if self.T is None or n < 2048 or n % _L:
+            A_cum, B_cum = affine_scan(torch.broadcast_to(self.a, x.shape),
+                                       self.b * x, dim=dim)
+            return B_cum + A_cum * y_prev.unsqueeze(dim)
+        nch = n // _L
+        u = (self.b * x).unflatten(dim, (nch, _L))
+        # each layout keeps its own orientation of the in-chunk product
+        if dim == -1:
+            yin, decay = torch.matmul(u, self.T.T), self.decay  # [.., nch, L]
+        else:
+            yin, decay = torch.matmul(self.T, u), self.decay[:, None]
+        e = yin.select(dim, -1)                            # chunk sums
+        Acum, Ecum = affine_scan(torch.broadcast_to(self.aL, e.shape), e,
+                                 dim=dim)
+        yp = y_prev.unsqueeze(dim)
+        s = Ecum + Acum * yp                               # chunk end states
+        c = torch.cat([yp, s.narrow(dim, 0, nch - 1)], dim=dim)
+        return (yin + c.unsqueeze(dim) * decay).reshape(x.shape)
 
 
-def first_order_scan_tm(x: torch.Tensor, a, b, y_prev: torch.Tensor):
-    """Time-major twin of :func:`first_order_scan`: x [..., T, C] with time
-    on axis -2 and channels last (the layout the PFB's cross-branch IDFT
-    produces), a, b scalar, y_prev [..., C].  Long blocks (T >= 2048,
-    T % 128 == 0, scalar ``a``) take the chunked triangular matmul, the
-    rest the log-step scan, as ``quisk_tpu.ops.iir._first_order_scan_tm``
-    chooses."""
-    a_t = torch.as_tensor(a, dtype=x.dtype, device=x.device)
-    T = x.shape[-2]
-    if a_t.ndim == 0 and T >= 2048 and T % 128 == 0:
-        return _first_order_chunked_tm(x, a_t, b, y_prev)
-    A = torch.broadcast_to(a_t, x.shape)
-    Bv = torch.as_tensor(b, dtype=x.dtype, device=x.device) * x
-    A_cum, B_cum = affine_scan(A, Bv, dim=-2)
-    return B_cum + A_cum * y_prev[..., None, :]
-
-
-def _first_order_chunked_tm(x: torch.Tensor, a: torch.Tensor, b,
-                            y_prev: torch.Tensor, L: int = 128):
-    """Chunked y[n] = a*y[n-1] + b*x[n] over axis -2: the factorisation of
-    :func:`_first_order_chunked` with each chunk an fp32 [L, L] x [L, C]
-    matmul, channels last."""
-    T, C = x.shape[-2:]
-    lead = x.shape[:-2]
-    nch = T // L
-    dt, dev = x.dtype, x.device
-    u = (torch.as_tensor(b, dtype=dt, device=dev) * x).reshape(
-        *lead, nch, L, C)
-    n = torch.arange(L, device=dev)
-    d = n[:, None] - n[None, :]
-    dm = torch.clamp(d, min=0).to(dt)
-    one = torch.ones((), dtype=dt, device=dev)
-    sgn = torch.where(a < 0, -one, one)
-    mag = torch.abs(a)
-    pw = (mag ** dm) * torch.where(dm % 2 == 0, one, sgn)
-    Tm = torch.where(d >= 0, pw, torch.zeros((), dtype=dt, device=dev))
-    yin = torch.matmul(Tm, u)                               # [.., nch, L, C]
-    e = yin[..., :, -1, :]                                  # [.., nch, C]
-    aL = (mag ** L) * (sgn ** (L % 2) if L % 2 else 1.0)
-    Aj = torch.broadcast_to(aL, e.shape)
-    Acum, Ecum = affine_scan(Aj, e, dim=-2)
-    s = Ecum + Acum * y_prev[..., None, :]                  # chunk end states
-    c = torch.cat([y_prev[..., None, :], s[..., :-1, :]], dim=-2)
-    n1 = (n + 1).to(dt)
-    decay = (mag ** n1) * torch.where((n + 1) % 2 == 0, one, sgn)   # [L]
-    y = yin + c[..., :, None, :] * decay[:, None]
-    return y.reshape(*lead, T, C)
+def first_order_scan(x: torch.Tensor, a, b, y_prev: torch.Tensor,
+                     dim: int = -1) -> torch.Tensor:
+    """All outputs of y[n] = a*y[n-1] + b*x[n] along axis ``dim`` given
+    y[-1] = y_prev, for bare coefficients (scalar, 0-dim or [C, 1]): the
+    constants of :class:`FirstOrder` are built for this call."""
+    return FirstOrder.create(a, b, x)(x, y_prev, dim)
 
 
 @dataclasses.dataclass(frozen=True)
 class OnePole:
-    """y[n] = a*y[n-1] + b*x[n].  Lowpass: a = exp(-2 pi fc / fs), b = 1-a."""
+    """y[n] = a*y[n-1] + b*x[n].  Lowpass: a = exp(-2 pi fc / fs), b = 1-a.
+    ``k``, its :class:`FirstOrder`, is built when made (not a field, as in
+    :class:`DCBlock` and :class:`PhaseRotator`: ``replace`` rebuilds it)."""
 
     a: torch.Tensor
     b: torch.Tensor
+
+    def __post_init__(self):
+        object.__setattr__(self, "k", FirstOrder.create(self.a, self.b,
+                                                        self.a))
 
     @classmethod
     def lowpass(cls, fc_hz: float, fs: float, device):
@@ -163,12 +140,12 @@ class OnePole:
                            device=self.a.device)
 
     def __call__(self, y_prev: torch.Tensor, x: torch.Tensor):
-        y = first_order_scan(x, self.a, self.b, y_prev)
+        y = self.k(x, y_prev)
         return y[:, -1], y
 
     def apply_tm(self, y_prev: torch.Tensor, x: torch.Tensor):
         """Time-major form: x [..., T, C], y_prev [..., C]."""
-        y = first_order_scan_tm(x, self.a, self.b, y_prev)
+        y = self.k(x, y_prev, dim=-2)
         return y[..., -1, :], y
 
 
@@ -178,6 +155,9 @@ class DCBlock:
     AM path).  State is (x_prev [C], y_prev [C])."""
 
     a: torch.Tensor
+
+    def __post_init__(self):
+        object.__setattr__(self, "k", FirstOrder.create(self.a, 1.0, self.a))
 
     @classmethod
     def create(cls, device, pole: float = 0.995):
@@ -191,14 +171,14 @@ class DCBlock:
     def __call__(self, state, x: torch.Tensor):
         x_prev, y_prev = state
         d = x - torch.cat([x_prev[:, None], x[:, :-1]], dim=-1)
-        y = first_order_scan(d, self.a, 1.0, y_prev)
+        y = self.k(d, y_prev)
         return (x[:, -1], y[:, -1]), y
 
     def apply_tm(self, state, x: torch.Tensor):
         """Time-major form: x [..., T, C], the state pair [..., C] each."""
         x_prev, y_prev = state
         d = x - torch.cat([x_prev[..., None, :], x[..., :-1, :]], dim=-2)
-        y = first_order_scan_tm(d, self.a, 1.0, y_prev)
+        y = self.k(d, y_prev, dim=-2)
         return (x[..., -1, :], y[..., -1, :]), y
 
 
@@ -401,13 +381,17 @@ class PhaseRotator:
     b0 = (g-1)/(g+1), g = tan(pi*fc/fs) (TXA default fc = 338 Hz, 8
     stages) on the real mic audio, to disperse speech phase and lower the
     peak-to-average ratio before clipping.  Each section is the recurrence
-    y[n] = (-b0)*y[n-1] + w[n], w[n] = b0*x[n] + x[n-1], run by
-    :func:`first_order_scan`.
+    y[n] = (-b0)*y[n-1] + w[n], w[n] = b0*x[n] + x[n-1], run by one
+    :class:`FirstOrder` built when the op is made.
 
     State: (x1, y1) each [nstages, C], the per-stage trailing samples."""
 
     b0: torch.Tensor
     nstages: int
+
+    def __post_init__(self):
+        object.__setattr__(self, "k", FirstOrder.create(-self.b0, 1.0,
+                                                        self.b0))
 
     @classmethod
     def create(cls, fc_hz: float = 338.0, fs: float = 48000.0,
@@ -427,7 +411,7 @@ class PhaseRotator:
         nx1, ny1 = [], []
         for n in range(self.nstages):
             w = self.b0 * x + torch.cat([x1[n][:, None], x[:, :-1]], dim=-1)
-            y = first_order_scan(w, -self.b0, 1.0, y1[n])
+            y = self.k(w, y1[n])
             nx1.append(x[:, -1])
             ny1.append(y[:, -1])
             x = y

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from quisk_tpu_torch import _kernels
-from quisk_tpu_torch.ops.iir import first_order_scan_tm
+from quisk_tpu_torch.ops.iir import first_order_scan
 
 _ERR_BAD_SHAPE = -1              # the launchers' kErrBadShape
 K2 = 128                         # stage-2 length of the demod kernel
@@ -229,8 +229,8 @@ def pfb_demod_plain(bb, st, twr, twi, w2r, w2i, am, fm, *, g_ssb: float,
 
     def one_pole(u, a, y_prev):
         # time on axis 1: fold (K1, K2) into the scan's channel axis
-        y = first_order_scan_tm(u.reshape(S, n_out, K1 * K2), a, 1.0,
-                                y_prev.reshape(S, K1 * K2))
+        y = first_order_scan(u.reshape(S, n_out, K1 * K2), a, 1.0,
+                             y_prev.reshape(S, K1 * K2), dim=-2)
         return y.reshape(S, n_out, K1, K2)
 
     a_ssb = float(np.float32(g_ssb)) * zr

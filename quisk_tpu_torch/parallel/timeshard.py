@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from quisk_tpu_torch.ops.fir import HalfbandFIR, MatmulFIR
-from quisk_tpu_torch.ops.iir import first_order_scan
+from quisk_tpu_torch.ops.iir import FirstOrder
 from quisk_tpu_torch.ops.nco import (MASK32, TWO_PI_OVER_2_32, freq_word,
                                      phase_tensor)
 from quisk_tpu_torch.parallel.comm import Mesh, all_gather, ring_from_left
@@ -83,19 +83,18 @@ def shard_one_pole(x: torch.Tensor, a: float, b: float, mesh: Mesh,
                    axis: str = "time") -> torch.Tensor:
     """y[n] = a*y[n-1] + b*x[n] across the whole time-sharded [C, B_local]
     signal: the local scan from y_in = 0 (``ops/iir.py``'s
-    ``first_order_scan``), then one ``all_gather`` of every shard's
+    ``FirstOrder``), then one ``all_gather`` of every shard's
     (a^B_local, last output) per channel and the fold over the shards
     before this one."""
     C, Bl = x.shape
-    y_local = first_order_scan(x, a, b, torch.zeros((C,), dtype=x.dtype,
-                                                    device=x.device))
-    a_t = torch.tensor(a, dtype=x.dtype, device=x.device)
-    A_B = all_gather(mesh, axis, torch.stack([(a_t ** Bl).expand(C),
+    op = FirstOrder.create(a, b, x)
+    y_local = op(x, torch.zeros((C,), dtype=x.dtype, device=x.device))
+    A_B = all_gather(mesh, axis, torch.stack([(op.a ** Bl).expand(C),
                                               y_local[:, -1]]))
     y_in = torch.zeros((C,), dtype=x.dtype, device=x.device)
     for k in range(mesh.index(axis)):
         y_in = A_B[k, 0] * y_in + A_B[k, 1]
-    powers = a_t ** torch.arange(1, Bl + 1, dtype=x.dtype, device=x.device)
+    powers = op.a ** torch.arange(1, Bl + 1, dtype=x.dtype, device=x.device)
     return y_local + y_in[:, None] * powers[None, :]
 
 

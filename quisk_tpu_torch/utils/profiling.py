@@ -23,8 +23,9 @@ and nothing is recorded or written.  There is no switch.
   ``pfb.stage1`` (kernel route) or ``pfb.dft`` (torch-op route), then
   ``pfb.demod`` and ``pfb.power``;
 - ``feed.copy`` (``DeviceFeed``'s host-to-card enqueue), ``feed.stage``
-  (the memcpy into the pinned ring) and ``feed.ring_wait`` (the wait for
-  the copy that last read a ring buffer).
+  (the memcpy into the pinned ring), ``feed.ring_wait`` (the wait for
+  the copy that last read a ring buffer) and ``feed.step_wait`` (the wait
+  for the last step before the next is launched: the run-ahead bound).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ SPANS = (
     "rx.ctcss",
     "pfb.step", "pfb.poly", "pfb.stage1", "pfb.dft", "pfb.demod",
     "pfb.power",
-    "feed.copy", "feed.stage", "feed.ring_wait",
+    "feed.copy", "feed.stage", "feed.ring_wait", "feed.step_wait",
 )
 _NAMES = {n: PREFIX + n for n in SPANS}
 NULL_SPAN = contextlib.nullcontext()

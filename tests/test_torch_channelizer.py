@@ -28,6 +28,7 @@ from quisk_tpu_torch import convert
 from quisk_tpu_torch.modes import Mode
 from quisk_tpu_torch.ops import channelizer as ch
 from quisk_tpu_torch.ops import demod, iir
+from quisk_tpu_torch.ops.pfb_kernels import pfb_demod_call
 
 FS = 96000.0
 MODES4 = [int(Mode.USB), int(Mode.LSB), int(Mode.AM), int(Mode.FM)]
@@ -394,6 +395,37 @@ def test_pipeline_through_convert_both_ways(jax_pipeline):
     assert snr_db(ja[..., :fm0], pa_u[..., :fm0]) > 80.0
     assert abs(rms_db(ja[..., fm0:], pa_u[..., fm0:])) < 0.5
     assert np.allclose(psp.numpy(), np.asarray(jsp), rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("built", ["create", "convert"])
+def test_pipeline_power_row_in_channel_order(built):
+    """The kernel route's power row is the fused kernel's sums, held at
+    position ``chan_pos[c]`` for channel c, gathered at ``chan_pos``: bit
+    for bit, for a pipeline from ``create`` and from ``convert``'s
+    construction (the step reorders by a transpose, uploading nothing)."""
+    K, B, S = 256, 256 * 16, 2
+    if built == "create":
+        pipe = ch.PFBRxPipeline.create(K, B, quarters(K), channel_rate=FS,
+                                       pallas_poly=True, pallas_demod=True,
+                                       device="cpu")
+    else:
+        jp = jch.PFBRxPipeline.create(K, B, quarters(K), channel_rate=FS,
+                                      mxu_dft=False, pallas_poly=True,
+                                      pallas_demod=True, TT=8)
+        pipe = convert.pfb_pipeline_from_numpy(_pipe_arrays(jp, B, True),
+                                               "cpu")
+    x = t(cnoise(np.random.default_rng(58), (S, B)))
+    st = pipe.init_state(S)
+    _, (_, spec) = pipe(st, x)
+    _, v = pipe.pfb.poly_stacked(st[0], x)
+    _, (twr, twi), (w2r, w2i), am_m, fm_m = pipe.kd
+    _, sums, _ = pfb_demod_call(
+        pipe.stage1(v), st[1], twr, twi, w2r, w2i, am_m, fm_m,
+        g_ssb=pipe.g_ssb, g_am=pipe.g_am, g_fm=pipe.g_fm, a_dc=pipe.a_dc,
+        a_de=pipe.a_de, b_de=pipe.b_de)
+    pos = torch.as_tensor(pipe.chan_pos)
+    assert torch.equal(spec, (sums.reshape(S, -1) * (1.0 / v.shape[1]))[:,
+                                                                       pos])
 
 
 def test_pipeline_routes_agree_in_the_port():

@@ -7,6 +7,7 @@ phases to exact equality."""
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax.numpy as jnp
 from quisk_tpu.ops import agc as jagc
@@ -210,6 +211,42 @@ def test_scan_negative_coefficient():
                                 jnp.asarray(y0))
     py = iir.first_order_scan(t(x), torch.tensor(a), 1.0, t(y0))
     assert snr_db(jy, n(py)) > 110.0
+
+
+class _AtenOps(TorchDispatchMode):
+    """The names of the aten ops dispatched inside the context."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("layout", ["channel_major", "time_major"])
+@pytest.mark.parametrize("kind", ["onepole", "dcblock"])
+def test_one_pole_builds_its_constants_once(kind, layout):
+    """OnePole and DCBlock build the scan's constants when they are made:
+    one call at B = 2048 (the chunked form) runs none of the ops that
+    make them (arange, pow, clamp, remainder) and turns no Python number
+    into a tensor (on a card, an upload from pageable memory that waits)."""
+    C, B = 4, 2048
+    op = (iir.OnePole.lowpass(300.0, 48e3, CPU) if kind == "onepole"
+          else iir.DCBlock.create(CPU, 0.995))
+    x = t(np.random.default_rng(9).standard_normal((C, B)).astype(
+        np.float32))
+    call = op if layout == "channel_major" else op.apply_tm
+    if layout == "time_major":
+        x = x.T.contiguous()
+    st = op.init_state(C)
+    with _AtenOps() as ops:
+        _, y = call(st, x)
+    assert y.shape == x.shape
+    assert {"mm", "bmm"} & set(ops.names)              # the chunked form
+    assert not {"arange", "pow", "clamp", "remainder", "lift_fresh",
+                "scalar_tensor"} & set(ops.names), ops.names
 
 
 # ----------------------------------------------------------------- demod

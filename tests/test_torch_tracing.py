@@ -223,4 +223,4 @@ def test_every_emitted_name_is_listed():
     assert emitted <= set(SPANS)
     # all but the feed's, which copy on the card only
     assert set(SPANS) - emitted == {"feed.copy", "feed.stage",
-                                    "feed.ring_wait"}
+                                    "feed.ring_wait", "feed.step_wait"}
