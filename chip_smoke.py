@@ -50,8 +50,9 @@ Phases, each fatal on failure:
    PyTorch version within 1e-4 of the output's peak;
 3. the flagship RxChain on the card for 8 blocks of seeded noise with a
    carrier 1 kHz above channel 0's dial (USB): finite [1024, 2048]
-   audio per block, the 1 kHz beat recovered, one front kernel launch
-   and one lookahead AGC kernel launch per block, and channels 0-7 equal
+   audio per block, the 1 kHz beat recovered, one front kernel launch,
+   one mixed-demod launch and one lookahead AGC kernel launch per block,
+   and channels 0-7 equal
    (> 90 dB from block 2 on, FM by RMS) to the same chain run on the CPU;
 4. timing with CUDA events after warm-up: ms per block, input Msps, the
    real-time factor, per-stage times, the device idle share of 10 steps
@@ -64,7 +65,14 @@ Phases, each fatal on failure:
    (torch ops on the card) over 3 chained blocks at [1024, 2048] and
    [8192, 2048] (output within 2e-5 of each row's peak, log gain within
    5e-6, delay line bit for bit), timed at both beside the plain route
-   and its byte bound;
+   and its byte bound; then the mixed demodulator's kernel
+   (csrc/mixed_demod.cu, from a stream of its own, SEED + 15) against its
+   plain route over 3 chained blocks at the flagship's modes and the
+   PLL-NFM plan's (every row EXT through the PLL) at [1024, 2048] and
+   [8192, 2048], and at the sync-AM flagship's at [1024, 2048] (AM and FM
+   rows >= 100 dB a row, the others and the carried samples bit for bit,
+   one launch a call), timed from a CUDA graph and call by call beside its
+   byte bound and the plain route;
 5. the front kernel's gained and NB-detect modes at a small half-band
    shape (C=8, T=45, d=2, a block whose tile is not filled, kwidth 97) and
    at the flagship shape (avg_win 64, kwidth 961) over 3 streamed blocks
@@ -186,8 +194,9 @@ Phases, each fatal on failure:
     and a 100 Hz tone on the even rows, 1e-4 noise on the odd rows) and
     the sync-AM flagship (flagship_config with ext_demod="sync_am", bw
     150 Hz; modes USB/LSB/EXT/FM; an AM station 40 Hz off its carrier on
-    every EXT row) for 6 blocks each: one front and one PLL launch a
-    block, and on the PLL-NFM path one launch of the CTCSS notch's kernel
+    every EXT row) for 6 blocks each: one front, one PLL and one mixed
+    demodulator launch a block, and on the PLL-NFM path one launch of the
+    CTCSS notch's kernel
     (csrc/biquad.cu) a block, rows 0-7 against the CPU chain started from
     the card chain's state at block 2 (> 90 dB, FM rows by RMS), the
     squelch open on the
@@ -404,8 +413,9 @@ Phases 15-19 draw from an RNG stream of their own (SEED + 2), phases
 another (SEED + 8), phase 29 from another (SEED + 5) and its edges from
 another (SEED + 6), phase 31 from another (SEED + 10), phase 32's
 flagship from another (SEED + 11) and its PFB input from another (SEED +
-12), phase 4's lookahead AGC from another (SEED + 13), phase 22's
-CTCSS notch from another (SEED + 14).  Phase 34 draws
+12), phase 4's lookahead AGC from another (SEED + 13) and its mixed
+demodulator from another (SEED + 15), phase 22's CTCSS notch from another
+(SEED + 14).  Phase 34 draws
 from none: each program makes its input from its own
 seeds, as a user running it gets.
 
@@ -469,7 +479,8 @@ from quisk_tpu_torch.ops import pfb_kernels as pk
 from quisk_tpu_torch.ops import agc_scan, diversity, pll
 from quisk_tpu_torch.ops.channelizer import PFBChannelizer, PFBRxPipeline
 from quisk_tpu_torch.ops.agc import AGC, HangAGC, TxALC, WcpAGC, agc_delay
-from quisk_tpu_torch.ops.demod import PLLFMDemod, register_ext_demod
+from quisk_tpu_torch.ops.demod import (MixedDemod, PLLFMDemod,
+                                       mixed_demod, register_ext_demod)
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR, PartitionedOLS
 from quisk_tpu_torch.ops.iir import Biquad, biquad_df1
 from quisk_tpu_torch.ops.noise import SpectralNoiseBlanker
@@ -557,6 +568,15 @@ def snr_db(ref, got) -> float:
                                   / torch.mean(torch.abs(err) ** 2)))
 
 
+def worst_row_db(ref: torch.Tensor, got: torch.Tensor) -> float:
+    """The worst row's SNR of ``got`` against ``ref`` [rows, n], in dB."""
+    ref = ref.double()
+    err = got.double() - ref
+    return float((10 * torch.log10(ref.pow(2).mean(-1)
+                                   / err.pow(2).mean(-1).clamp_min(1e-300))
+                  ).min())
+
+
 def graph_ms(fn, iters: int = 20) -> float:
     """ms a call of ``fn`` replayed from a CUDA graph of ``iters`` calls:
     the device's time without the host's cost of each launch."""
@@ -621,7 +641,7 @@ def wrappers() -> tuple:
             fused_tune_decimate_nb, pk.pfb_poly_oversampled,
             pk.pfb_poly_critical, pk.pfb_demod_call, pll.pll_sync_am,
             pll.pll_fm, agc_scan.tx_alc_scan, agc_scan.wcp_scan,
-            agc_scan.hang_scan, agc_delay, biquad_df1)
+            agc_scan.hang_scan, agc_delay, biquad_df1, mixed_demod)
 
 
 def reset_launches() -> None:
@@ -866,9 +886,11 @@ def phase_main_path(report: dict, rng):
     st, audio = run_chain(chain, blocks)
     torch.cuda.synchronize()
     n = launches()
-    print(f"  main path: {N_BLOCKS} blocks, front launches {n}, lookahead "
-          f"AGC launches {agc_delay.launches}", flush=True)
+    print(f"  main path: {N_BLOCKS} blocks, front launches {n}, mixed demod "
+          f"launches {mixed_demod.launches}, lookahead AGC launches "
+          f"{agc_delay.launches}", flush=True)
     assert n == {"plain": N_BLOCKS, "gained": 0, "nb": 0}, n
+    assert mixed_demod.launches == N_BLOCKS, mixed_demod.launches
     assert agc_delay.launches == N_BLOCKS, agc_delay.launches
     for a in audio:
         assert a.shape == (C, AUDIO_BLOCK) and a.dtype == torch.float32
@@ -911,6 +933,7 @@ def phase_main_path(report: dict, rng):
           f"{min(worst):.1f} dB", flush=True)
     report["main_path"] = {"blocks": N_BLOCKS, "launches": n,
                            "agc_delay_launches": agc_delay.launches,
+                           "mixed_demod_launches": mixed_demod.launches,
                            "beat_hz": f_peak, "beat_contrast_db": contrast,
                            "cpu_match_min_db": min(worst)}
     return chain, blocks, n["plain"]
@@ -1074,6 +1097,113 @@ def phase_agc_delay(report: dict, smi: str) -> dict:
                               "max_lg_err": worst["lg"],
                               "max_abs_err": worst["abs"], **t}
     report["agc_delay"] = out
+    return out
+
+
+MIXED_SHAPES = ((1024, AUDIO_BLOCK), (8192, AUDIO_BLOCK))
+
+
+def mixed_demod_bound(rows: int, B: int, ext_rows: int) -> dict:
+    """The mixed demodulator's block: the complex samples read (8 B), the
+    audio written (4 B) and, on EXT rows, the EXT op's audio read (4 B), a
+    sample; the state read and written (5 floats a row each way);
+    operations ~70 a sample (two hypotf, an atan2f, the discriminator's
+    products, the four recurrence fma, the gains and the selection)."""
+    return bound(rows * (12 * B + 40) + ext_rows * 4 * B, rows * B * 70)
+
+
+def mixed_signal(rng, rows: int, B: int, blk: int, dev) -> torch.Tensor:
+    """Block ``blk`` of a carrier a row at its own offset, FM-swung 2 rad
+    at 500 Hz and AM-swung 50% at 300 Hz, under noise 34 dB down (the
+    discriminator away from its gate and from +-pi)."""
+    t = torch.arange(blk * B, (blk + 1) * B, device=dev,
+                     dtype=torch.float64) / 48000.0
+    f = torch.as_tensor(rng.uniform(-3000.0, 3000.0, (rows, 1)), device=dev)
+    ph = 2 * np.pi * f * t + 2.0 * torch.sin(2 * np.pi * 500.0 * t)
+    amp = 0.5 * (1.0 + 0.5 * torch.sin(2 * np.pi * 300.0 * t))
+    noise = torch.as_tensor(rng.standard_normal((2, rows, B),
+                                                dtype=np.float32), device=dev)
+    return (torch.polar(amp.expand(rows, B), ph).to(torch.complex64)
+            + 0.01 * torch.complex(noise[0], noise[1]))
+
+
+def phase_mixed_demod(report: dict, smi: str) -> dict:
+    """csrc/mixed_demod.cu against MixedDemod.plain on the card over 3
+    chained blocks, each route carrying its own state: the flagship's modes
+    (cycling USB / LSB / AM / FM) and the PLL-NFM plan's (every row EXT
+    through the PLL, the CTCSS notch at 100 Hz) at [1024, 2048] and [8192,
+    2048], and the sync-AM flagship's (cycling USB / LSB / EXT / FM, EXT
+    through sync AM) at [1024, 2048]; AM and FM rows >= 100 dB a row, the
+    other rows and the carried samples bit for bit; one launch a call.
+    Then each timed from a CUDA graph and call by call beside its byte
+    bound and the plain route's families (where rows are EXT, with their
+    selection: what the kernel replaces)."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 15)
+    register_pll_demods()
+    print(f"the mixed demodulator's kernel [{smi}]:", flush=True)
+    cases = []
+    for rows, B in MIXED_SHAPES:
+        cases += [("flagship", rows, B, [MODES[i % 4] for i in range(rows)],
+                   {}),
+                  ("PLL-NFM", rows, B, int(Mode.EXT),
+                   dict(ext_demod="pll_fm", ctcss_hz=100.0))]
+    cases.append(("sync-AM", *MIXED_SHAPES[0],
+                  [SYNC_MODES[i % 4] for i in range(MIXED_SHAPES[0][0])],
+                  dict(ext_demod="sync_am")))
+    out = {}
+    for label, rows, B, modes, ext in cases:
+        op = MixedDemod.create(modes, 48000.0, rows, device=dev, **ext)
+        m = op.mode[:, None]
+        fam = (m == int(Mode.AM)) | (m == int(Mode.FM))
+        sk = sp = op.init_state(rows)
+        worst = {"db": np.inf, "rel": 0.0, "abs": 0.0}
+        n0 = mixed_demod.launches
+        for blk in range(3):
+            x = mixed_signal(rng, rows, B, blk, dev)
+            (sk, yk), (sp, yp) = op(sk, x), op.plain(sp, x)
+            assert torch.equal(torch.where(fam, 0.0, yk),
+                               torch.where(fam, 0.0, yp))
+            assert torch.equal(sk[1][0], sp[1][0])
+            rows_f = fam[:, 0].nonzero().flatten()
+            if len(rows_f):
+                worst["db"] = min(worst["db"], worst_row_db(yp[rows_f],
+                                                            yk[rows_f]))
+            peak = yp.abs().amax(-1, keepdim=True)
+            worst["rel"] = max(worst["rel"],
+                               float(((yk - yp).abs() / peak).max()))
+            worst["abs"] = max(worst["abs"], float((yk - yp).abs().max()))
+        torch.cuda.synchronize()
+        assert mixed_demod.launches == n0 + 3
+        assert worst["db"] >= 100.0, worst
+        (am, fm, ext_st) = sk
+        a_ext = op.ext(ext_st, x)[1] if op.ext is not None else None
+        bare = dataclasses.replace(op, ext=None)
+        is_ext = m == int(Mode.EXT)
+
+        def plain_families():
+            a = bare.plain(sp, x)[1]
+            return a if a_ext is None else torch.where(is_ext, a_ext, a)
+
+        t = {"ms": graph_ms(lambda: mixed_demod(op, am, fm, x, a_ext)),
+             "call_ms": cuda_ms(lambda: mixed_demod(op, am, fm, x, a_ext),
+                                20),
+             "plain_ms": cuda_ms(plain_families, 5),
+             **mixed_demod_bound(rows, B, int(is_ext.sum())),
+             "library_ms": None}
+        db = "n/a (no AM or FM row)" if worst["db"] == np.inf else \
+            f"{worst['db']:.1f} dB"
+        print(f"  mixed_demod, {label} modes at [{rows}, {B}]: AM / FM rows "
+              f"{db} from the plain route over 3 blocks, the rest bit for "
+              f"bit; {t['ms']:.4f} ms (from a CUDA graph; "
+              f"{t['call_ms']:.4f} call by call), plain "
+              f"{t['plain_ms']:.4f} ms, library none, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+              f"({t['mbytes']:.1f} MB, {t['gflop']:.3f} GFLOP)", flush=True)
+        out[f"{label} {rows}x{B}"] = {"snr_db": worst["db"],
+                                      "max_rel_err": worst["rel"],
+                                      "max_abs_err": worst["abs"], **t}
+    report["mixed_demod"] = out
     return out
 
 
@@ -1435,8 +1565,10 @@ def phase_nfm(report: dict, smi: str, rng):
     st, audio = run_chain(chain, blocks)
     torch.cuda.synchronize()
     n = launches()
-    print(f"  NFM path: {nblk} blocks, front launches {n}", flush=True)
+    print(f"  NFM path: {nblk} blocks, front launches {n}, mixed demod "
+          f"launches {mixed_demod.launches}", flush=True)
     assert n == {"plain": nblk, "gained": 0, "nb": 0}, n
+    assert mixed_demod.launches == nblk, mixed_demod.launches
     for a in audio:
         assert a.shape == (C, AUDIO_BLOCK) and bool(torch.isfinite(a).all())
     hold, gain = st["fm_sq"]
@@ -2985,8 +3117,9 @@ def sync_am_blocks(rng, nblk: int, B: int):
 
 
 def run_pll_path(label: str, chain, cpu, blocks, modes, strict_rows):
-    """The path on the card for every block (one front and one PLL launch
-    a block, and one notch launch on the PLL-NFM path), then the CPU chain from the card's rows 0-7 state at block
+    """The path on the card for every block (one front, one PLL and one
+    mixed demodulator launch a block, and one notch launch on the PLL-NFM
+    path), then the CPU chain from the card's rows 0-7 state at block
     PLL_CARRY_AT, compared on rows 0-7."""
     reset_launches()
     st = chain.init_state()
@@ -2999,10 +3132,12 @@ def run_pll_path(label: str, chain, cpu, blocks, modes, strict_rows):
     torch.cuda.synchronize()
     n, npll = launches(), pll_launches()
     print(f"  {label}: {len(blocks)} blocks, front launches {n}, PLL "
-          f"launches {npll}", flush=True)
+          f"launches {npll}, mixed demod launches {mixed_demod.launches}",
+          flush=True)
     mode = "pll_fm" if isinstance(chain.demod.ext, PLLFMDemod) else "sync_am"
     assert n == {"plain": len(blocks), "gained": 0, "nb": 0}, n
     assert npll == {"sync_am": 0, "pll_fm": 0, mode: len(blocks)}, npll
+    assert mixed_demod.launches == len(blocks), mixed_demod.launches
     # the CTCSS notch: one biquad launch a block where the path has one
     notched = mode == "pll_fm" and chain.demod.ext.notch is not None
     assert biquad_df1.launches == (len(blocks) if notched else 0), \
@@ -3022,6 +3157,7 @@ def run_pll_path(label: str, chain, cpu, blocks, modes, strict_rows):
                              CPU_MATCH_DB, label, strict_rows=strict_rows)
     return st, audio, {"launches": n, "pll_launches": npll,
                        "biquad_launches": biquad_df1.launches,
+                       "mixed_demod_launches": mixed_demod.launches,
                        "cpu_match": match}
 
 
@@ -3118,7 +3254,10 @@ def phase_pll_paths(report: dict, rng) -> dict:
             "sync_blocks": s_blocks, "kern": kern,
             "launches": {"pll_fm": nres["pll_launches"]["pll_fm"],
                          "sync_am": sres["pll_launches"]["sync_am"],
-                         "biquad": nres["biquad_launches"]}}
+                         "biquad": nres["biquad_launches"],
+                         "mixed_demod": {
+                             "PLL-NFM": nres["mixed_demod_launches"],
+                             "sync-AM": sres["mixed_demod_launches"]}}}
 
 
 def pll_bound(C_: int, B: int, mode: str) -> dict:
@@ -6108,7 +6247,8 @@ def ex_receiver(tmp: str, smi: str) -> dict:
         lambda: trx.run(DEVICE, EX_RX_SECONDS, os.path.join(tmp, "rx")),
         "receiver (4 channels at 960 kS/s, unfused)", smi)
     # the reference's unfused front: no front kernel; the AGC's kernel
-    assert counts == {"agc_delay": res["blocks"]}, counts
+    assert counts == {"agc_delay": res["blocks"],
+                      "mixed_demod": res["blocks"]}, counts
     assert bool(np.isfinite(res["audio"]).all())
     one_thread(lambda: quietly(lambda: trx.run(
         "cpu", EX_RX_SECONDS, os.path.join(tmp, "rx_cpu"))))
@@ -6222,7 +6362,8 @@ def ex_transceiver(tmp: str, smi: str) -> dict:
             lambda: ttx.run(DEVICE, os.path.join(tmp, "tx")),
             "transceiver (loopback SSB and FM, PureSignal, live session)",
             smi)
-    want = {"tx_alc_scan": len(steps), "agc_delay": sum(rx_agc)}
+    want = {"tx_alc_scan": len(steps), "agc_delay": sum(rx_agc),
+            "mixed_demod": len(rx_agc)}
     assert counts == {k: v for k, v in want.items() if v}, (counts, want)
     before, after = res["imd"]
     assert before - after > IMD_GAIN_DB, res["imd"]
@@ -6405,6 +6546,7 @@ def main(argv=None) -> int:
     n_agc = report["main_path"]["agc_delay_launches"]
     times = phase_timing(report, smi, chain, blocks, kern)
     delay_times = phase_agc_delay(report, smi)
+    mixed_times = phase_mixed_demod(report, smi)
     gk = phase_gain_kernels(report, rng)
     featured, f_blocks, n_nb, n_gained = phase_featured(report, rng)
     nfm, n_blocks, k_nfm = phase_nfm(report, smi, rng)
@@ -6510,6 +6652,23 @@ def main(argv=None) -> int:
          "max_abs_err": biquad_times[f"{rows}x{B}"]["max_abs_err"],
          **{k: biquad_times[f"{rows}x{B}"][k] for k in timed}}
         for rows, B in BIQUAD_SHAPES]
+    # the mixed demodulator: launches from the path that runs each plan at
+    # [C, 2048] (its counter set to 0), from the side check's 3 calls at
+    # [8192, 2048]
+    path_launches = {"flagship": report["main_path"]["mixed_demod_launches"],
+                     **paths["launches"]["mixed_demod"]}
+    kernels += [
+        {"name": "mixed_demod", "route": "cuda",
+         "source": "quisk_tpu_torch/csrc/mixed_demod.cu",
+         "replaces": "none (quisk_tpu/ops/demod.py MixedDemod: jnp ops)",
+         "path": (f"{plan} path at [{shape}]" if rows == C else
+                  f"{plan} modes at [{shape}], side check of 3 calls"),
+         "launches": path_launches[plan] if rows == C else 3,
+         "max_abs_err": mixed_times[key]["max_abs_err"],
+         **{k: mixed_times[key][k] for k in timed}}
+        for key in mixed_times
+        for plan, shape in [key.split()]
+        for rows in [int(shape.split("x")[0])]]
     del paths
     torch.cuda.empty_cache()
     phase_slice5_ops(report, smi, rng_s5)

@@ -12,8 +12,10 @@ Parity targets in the reference (quisk.c:1848 ``quisk_process_demodulate``):
   frequency estimate is the audio, run by the PLL kernel (ops/pll.py),
   then de-emphasis and an optional CTCSS notch.
 
-The mixed-mode batch computes every family and selects per channel with
-``torch.where``, so the mode vector is data.  The grouped demods
+The mixed-mode batch computes every family on every channel and selects
+per channel by the ``mode`` vector, which is data: on a card in one launch
+of ``csrc/mixed_demod.cu`` (:func:`mixed_demod`), on the CPU as torch ops
+with ``torch.where`` (:meth:`MixedDemod.plain`).  The grouped demods
 (:class:`GroupedDemod` channel-major, :class:`GroupedDemodTM` time-major on
 (re, im) planes) run each family only on its own contiguous run of
 channels, fixed at ``create``: the PFB channelizer's channel -> mode plan.
@@ -21,11 +23,14 @@ channels, fixed at ``create``: the PFB channelizer's channel -> mode plan.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from quisk_tpu_torch import _kernels
 from quisk_tpu_torch._device import resolve_device
 from quisk_tpu_torch.modes import Mode
 from quisk_tpu_torch.ops.iir import Biquad, DCBlock, OnePole
@@ -213,9 +218,11 @@ class MixedDemod:
     """Per-channel mode selection over a shared ``[C, B]`` batch.
 
     Every family is computed and the per-channel result selected by the
-    ``mode`` vector (quisk.c:1909-2153 with the branches as data).  Any
-    channel created as DGT_IQ makes the chain's audio complex64
-    (``iq_out``): those rows carry the raw filtered IQ.
+    ``mode`` vector (quisk.c:1909-2153 with the branches as data); every
+    family's state advances on every channel, so a channel retuned to
+    another family goes on from a warm state.  Any channel created as
+    DGT_IQ makes the chain's audio complex64 (``iq_out``): those rows carry
+    the raw filtered IQ.
     """
 
     ssb: SSBDemod
@@ -245,6 +252,28 @@ class MixedDemod:
                 ext_st)
 
     def __call__(self, state, x: torch.Tensor):
+        """x [C, B] complex64 -> (state, audio [C, B] float32).  A CUDA
+        tensor runs the EXT op, if any, then launches the kernel once
+        (:func:`mixed_demod`); a CPU tensor runs :meth:`plain`; any other
+        device raises."""
+        if x.device.type == "cpu":
+            return self.plain(state, x)
+        am_st, fm_st, ext_st = state
+        a_ext = None
+        if self.ext is not None:
+            ext_st, a_ext = self.ext(ext_st, x)
+        (am_st, fm_st), audio = mixed_demod(self, am_st, fm_st, x, a_ext)
+        return (am_st, fm_st, ext_st), audio
+
+    def params(self) -> tuple:
+        """The kernel's six 0-dim parameters: SSB gain, AM gain, the DC
+        blocker's pole, FM gain, the de-emphasis's a and b."""
+        return (self.ssb.gain, self.am.gain, self.am.dc.a, self.fm.gain,
+                self.fm.deemph.a, self.fm.deemph.b)
+
+    def plain(self, state, x: torch.Tensor):
+        """The block as torch ops on any device: every family, then
+        ``torch.where`` by the mode."""
         am_st, fm_st, ext_st = state
         _, a_ssb = self.ssb((), x)
         am_st, a_am = self.am(am_st, x)
@@ -256,6 +285,98 @@ class MixedDemod:
             ext_st, a_ext = self.ext(ext_st, x)
             audio = torch.where(m == int(Mode.EXT), a_ext, audio)
         return (am_st, fm_st, ext_st), audio
+
+
+_ERR_BAD_SHAPE = -1                          # the launcher's error code
+
+
+def check(op: MixedDemod, am_st, fm_st, x: torch.Tensor, a_ext
+          ) -> tuple[int, int]:
+    """What :func:`mixed_demod` checks first: ``x`` [C, B] complex64 (C, B
+    >= 1), the mode [C] int32,
+    the AM state (x_prev, y_prev) [C] float32, the FM state (prev [C]
+    complex64, y_prev [C] float32), the EXT audio (None, or [C, B]
+    float32) and the six 0-dim float32 parameters, all on ``x``'s device.
+    Returns (C, B)."""
+    if x.dtype != torch.complex64:
+        raise TypeError(f"samples must be torch.complex64, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"samples must be [C, B] with C, B >= 1, got "
+                         f"{tuple(x.shape)}")
+    C, B = x.shape
+    (ax, ay), (fp, fy) = am_st, fm_st
+    for name, t, dt in (("mode", op.mode, torch.int32),
+                        ("AM x_prev", ax, torch.float32),
+                        ("AM y_prev", ay, torch.float32),
+                        ("FM prev", fp, torch.complex64),
+                        ("FM y_prev", fy, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if tuple(t.shape) != (C,) or t.device != x.device:
+            raise ValueError(f"{name} must be {(C,)} on {x.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if a_ext is not None:
+        if a_ext.dtype != torch.float32:
+            raise TypeError(f"EXT audio must be torch.float32, got "
+                            f"{a_ext.dtype}")
+        if tuple(a_ext.shape) != (C, B) or a_ext.device != x.device:
+            raise ValueError(f"EXT audio must be {(C, B)} on {x.device}, "
+                             f"got {tuple(a_ext.shape)} on {a_ext.device}")
+    _kernels.check_tensors(x, {
+        name: (t, torch.float32, ())
+        for name, t in zip(("ssb gain", "AM gain", "AM pole", "FM gain",
+                            "de-emphasis a", "de-emphasis b"),
+                           op.params())})
+    return C, B
+
+
+@functools.cache
+def _launcher():
+    fn = _kernels.load("mixed_demod").mixed_demod
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [ptr, i64] * 7 + [ptr] * 8 + [i32] * 5 + [ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mixed_demod(op: MixedDemod, am_st, fm_st, x: torch.Tensor,
+                a_ext: torch.Tensor | None = None):
+    """``op``'s families and selection on ``x``'s CUDA device in one kernel
+    launch (``mixed_demod.launches``): ((AM state', FM state'), audio) as
+    :meth:`MixedDemod.plain` gives them, the EXT rows taking ``a_ext``
+    (the EXT op's audio, already computed).  The mode and the parameters
+    are read on the card, so nothing waits on it and a retune needs no
+    rebuild."""
+    if x.device.type != "cuda":
+        raise ValueError(f"mixed_demod: no kernel for device {x.device}")
+    C, B = check(op, am_st, fm_st, x, a_ext)
+    # the kernel reads each row's samples in order: a time-major caller's
+    # view (the PFB's [.., time, channel] planes transposed) is copied once
+    x, a_ext = (t if t is None or B == 1 or t.stride(1) == 1
+                else t.contiguous() for t in (x, a_ext))
+    out = torch.empty((C, B), dtype=torch.float32, device=x.device)
+    st = torch.empty((5 * C,), dtype=torch.float32, device=x.device)
+    (ax, ay), (fp, fy) = am_st, fm_st
+    err = _kernels.call(
+        x, _launcher(), x.data_ptr(), x.stride(0) if C > 1 else B,
+        *(v for t in (op.mode, ax, ay, fp, fy)
+          for v in (t.data_ptr(), t.stride(0))),
+        a_ext.data_ptr() if a_ext is not None else None,
+        a_ext.stride(0) if a_ext is not None and C > 1 else B,
+        *(t.data_ptr() for t in op.params()), out.data_ptr(), st.data_ptr(),
+        C, B, int(Mode.AM), int(Mode.FM), int(Mode.EXT))
+    if err == _ERR_BAD_SHAPE:
+        raise ValueError(f"mixed_demod: shape {(C, B)} outside the kernel's "
+                         f"limits")
+    if err != 0:
+        raise RuntimeError(f"mixed_demod launch failed: CUDA error {err}")
+    mixed_demod.launches += 1
+    prev = torch.view_as_complex(st[:2 * C].view(C, 2))
+    ax, ay, fy = st[2 * C:].view(3, C).unbind(0)
+    return ((ax, ay), (prev, fy)), out
+
+
+mixed_demod.launches = 0
 
 
 _FAMILIES = {int(Mode.AM): "am", int(Mode.FM): "fm"}
