@@ -37,6 +37,7 @@ from quisk_tpu_torch.ops.nco import NCO, freq_word, phase_tensor
 from quisk_tpu_torch.ops.resample import Interpolator
 from quisk_tpu_torch.rx.frontend import balance_matrix
 from quisk_tpu_torch.tx.puresignal import Predistorter
+from quisk_tpu_torch.utils.profiling import span
 
 TWO_PI = 2.0 * np.pi
 DGT_MODES = frozenset(int(m) for m in (Mode.DGT_U, Mode.DGT_L, Mode.DGT_IQ,
@@ -250,21 +251,27 @@ class TxChain:
     def pre_alc(self, state, audio: torch.Tensor):
         """(state, modulated IQ [C, block]): the step up to the ALC."""
         st = dict(state)
-        a = self.condition(st, audio)
-        st["analytic"], z = self.analytic(st["analytic"],
-                                          a.to(torch.complex64))
-        return st, self.modulators(st, audio, z)
+        with span("tx.condition"):
+            a = self.condition(st, audio)
+        with span("tx.filter"):
+            st["analytic"], z = self.analytic(st["analytic"],
+                                              a.to(torch.complex64))
+        with span("tx.modulate"):
+            return st, self.modulators(st, audio, z)
 
     def post_alc(self, st: dict, iq: torch.Tensor) -> torch.Tensor:
         """CESSB on the SSB-like rows, the predistortion slot, then the
         interpolator to the TX rate.  Updates ``st``."""
         if self.cessb is not None:
-            st["cessb"], iq_c = self.cessb(st["cessb"], iq)
-            iq = torch.where(self._is(Mode.AM, Mode.FM), iq, iq_c)
+            with span("tx.cessb"):
+                st["cessb"], iq_c = self.cessb(st["cessb"], iq)
+                iq = torch.where(self._is(Mode.AM, Mode.FM), iq, iq_c)
         if self.predist is not None:
-            _, iq = self.predist((), iq)
+            with span("tx.predist"):
+                _, iq = self.predist((), iq)
         if self.interp is not None:
-            st["interp"], iq = self.interp(st["interp"], iq)
+            with span("tx.interp"):
+                st["interp"], iq = self.interp(st["interp"], iq)
         return iq
 
     def place(self, st: dict, iq: torch.Tensor) -> torch.Tensor:
@@ -280,12 +287,16 @@ class TxChain:
         return torch.complex(m00 * re, m10 * re + m11 * im)
 
     def step(self, state, audio: torch.Tensor):
-        """audio [C, block] float32 -> (state, iq [C, block_tx] complex64)."""
-        st, iq = self.pre_alc(state, audio)
-        if self.alc is not None:
-            st["alc"], iq = self.alc(st["alc"], iq)
-        iq = self.post_alc(st, iq)
-        return st, self.place(st, iq)
+        """audio [C, block] float32 -> (state, iq [C, block_tx] complex64).
+        Each stage runs in its ``tx.*`` span (``utils/profiling.py``)."""
+        with span("tx.step"):
+            st, iq = self.pre_alc(state, audio)
+            if self.alc is not None:
+                with span("tx.alc"):
+                    st["alc"], iq = self.alc(st["alc"], iq)
+            iq = self.post_alc(st, iq)
+            with span("tx.place"):
+                return st, self.place(st, iq)
 
     def set_ctcss(self, tone_hz: float, deviation_hz: float,
                   band_hi: float) -> "TxChain":
@@ -300,11 +311,13 @@ class TxChain:
 
     def set_tune(self, offset_hz, channel=None) -> "TxChain":
         """New chain transmitting ``offset_hz`` from the hardware TX center
-        (sound.c:708, QS.set_tune); one row with ``channel``."""
+        (sound.c:708, QS.set_tune): one offset for every row, a ``[C]``
+        array of one offset a row, or one row's with ``channel``."""
         rate = self.audio_rate * (self.block_tx / self.block)
         if channel is None:
-            word = phase_tensor(freq_word(
-                np.full(self.channels, float(offset_hz)), rate), self.device)
+            off = np.broadcast_to(np.asarray(offset_hz, np.float64),
+                                  (self.channels,))
+            word = phase_tensor(freq_word(off, rate), self.device)
         else:
             word = self.tune.word.clone()
             word[channel] = int(freq_word(float(offset_hz), rate)[0])

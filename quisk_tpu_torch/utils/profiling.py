@@ -1,6 +1,6 @@
 """The program's spans: a ``torch.profiler`` range around each stage of the
-receive paths and the feed, so that a profiler trace shows, beside the
-card's kernels and copies, which stage launched them.
+receive and transmit paths and the feed, so that a profiler trace shows,
+beside the card's kernels and copies, which stage launched them.
 
 ``span(name)`` is ``torch.profiler.record_function("quisk." + name)``
 while a profiler session is recording on this thread (anyone's
@@ -22,6 +22,11 @@ and nothing is recorded or written.  There is no switch.
 - ``pfb.step``: ``PFBRxPipeline.__call__``; inside it ``pfb.poly``, then
   ``pfb.stage1`` (kernel route) or ``pfb.dft`` (torch-op route), then
   ``pfb.demod`` and ``pfb.power``;
+- ``tx.step``: ``TxChain.step``; inside it, in order, ``tx.condition``
+  (the IMD two-tone, the phase rotator, pre-emphasis, the compressor),
+  ``tx.filter`` (the analytic OLS filter), ``tx.modulate``, then one span
+  for each stage present: ``tx.alc``, ``tx.cessb``, ``tx.predist``,
+  ``tx.interp``; last ``tx.place`` (Spot, the tune NCO, the I/Q trim);
 - ``feed.copy`` (``DeviceFeed``'s host-to-card enqueue), ``feed.stage``
   (the memcpy into the pinned ring), ``feed.ring_wait`` (the wait for
   the copy that last read a ring buffer) and ``feed.step_wait`` (the wait
@@ -41,6 +46,8 @@ SPANS = (
     "rx.ctcss",
     "pfb.step", "pfb.poly", "pfb.stage1", "pfb.dft", "pfb.demod",
     "pfb.power",
+    "tx.step", "tx.condition", "tx.filter", "tx.modulate", "tx.alc",
+    "tx.cessb", "tx.predist", "tx.interp", "tx.place",
     "feed.copy", "feed.stage", "feed.ring_wait", "feed.step_wait",
 )
 _NAMES = {n: PREFIX + n for n in SPANS}

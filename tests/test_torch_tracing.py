@@ -3,7 +3,8 @@ no profiler a span is one shared null context and the receive paths give
 the same outputs, bit for bit, as under a profiler; under a profiler each
 step emits its stages' ``quisk.*`` ranges once each, nested inside its
 ``*.step`` range and in stage order, a stage that is absent emits none,
-and every name emitted is in ``SPANS``."""
+and every name emitted is in ``SPANS`` (the transmit chain's own cases
+are in test_torch_tx_spans.py)."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from quisk_tpu_torch.io.feed import DeviceFeed
 from quisk_tpu_torch.modes import Mode
 from quisk_tpu_torch.ops.channelizer import PFBRxPipeline
 from quisk_tpu_torch.rx import RxChain, RxChainConfig
+from quisk_tpu_torch.tx import TxChain, TxChainConfig
 from quisk_tpu_torch.utils.profiling import NULL_SPAN, PREFIX, SPANS, span
 
 MODES = [int(Mode.USB), int(Mode.LSB), int(Mode.AM), int(Mode.FM)]
@@ -210,8 +212,16 @@ def test_every_emitted_name_is_listed():
     ch = _chain(sample_rate=192e3, channels=4, audio_block=512, **FEATURED)
     pll = _chain(sample_rate=192e3, channels=4, audio_block=512,
                  ext_demod="pll_fm", ctcss_hz=100.0)
+    # the transmit chain with every stage it can have
+    tx = TxChain.create(TxChainConfig(
+        channels=4, tx_rate=96000.0, audio_block=256, compress_db=6.0,
+        preemphasis=0.3, cessb=True, predistort=True, phase_rotator=True),
+        mode=MODES, device="cpu")
+    mic = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (4, 256)).astype(np.float32))
     for fn in (lambda: ch.step(ch.init_state(),
                                _iq((ch.channels, ch.block_in))),
+               lambda: tx.step(tx.init_state(), mic),
                lambda: pll.step(pll.init_state(),
                                 _iq((pll.channels, pll.block_in))),
                lambda: _pipe(False)(_pipe(False).init_state(1),
