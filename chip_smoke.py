@@ -149,11 +149,13 @@ Phases, each fatal on failure:
     chain on the CPU, the ALC's per-sample clip decisions on rows 0-7 equal
     to the CPU's on identical inputs (those on each side's own modulated IQ
     counted), the USB rows' image band <= -40 dB against the wanted band
-    through the card's SpectrumAnalyzer;
+    through the card's SpectrumAnalyzer; one launch of csrc/tx_place.cu
+    (Spot, the tune NCO and the trim) a step;
 16. timing of the TX step (events and host clock, output Msps, real-time
     factor), its stages on one block's real intermediates, the CUDA
     launches of TxALC (at most 40) and of the whole step (at most 200),
-    and its device idle share;
+    and its device idle share; the place kernel at the benchmark's [8192,
+    4096] from a CUDA graph beside its byte bound and place_plain;
 17. the TX->RX loopback: the TX chain with ALC, compression and
     pre-emphasis off into the 192 kS/s RxChain (kernel #1 at T=133, d=4)
     for 16 blocks: one front launch a block, the voice recovered at > 18 dB
@@ -483,6 +485,7 @@ from quisk_tpu_torch.ops.demod import (MixedDemod, PLLFMDemod,
                                        mixed_demod, register_ext_demod)
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR, PartitionedOLS
 from quisk_tpu_torch.ops.iir import Biquad, biquad_df1
+from quisk_tpu_torch.ops.nco import tx_place
 from quisk_tpu_torch.ops.noise import SpectralNoiseBlanker
 from quisk_tpu_torch.ops.nr import SyncAMDemod
 from quisk_tpu_torch.ops.spectrum import (SpectrumAnalyzer, ZoomSpectrum,
@@ -641,7 +644,8 @@ def wrappers() -> tuple:
             fused_tune_decimate_nb, pk.pfb_poly_oversampled,
             pk.pfb_poly_critical, pk.pfb_demod_call, pll.pll_sync_am,
             pll.pll_fm, agc_scan.tx_alc_scan, agc_scan.wcp_scan,
-            agc_scan.hang_scan, agc_delay, biquad_df1, mixed_demod)
+            agc_scan.hang_scan, agc_delay, biquad_df1, mixed_demod,
+            tx_place)
 
 
 def reset_launches() -> None:
@@ -2502,6 +2506,7 @@ IMD_GAIN_DB = 12.0         # tests/test_puresignal.py:52
 SPEC_POWER_RTOL = 1e-4
 ALC_LAUNCHES_MAX = 40      # TxALC's CUDA launches a block (kernel + torch)
 TX_STEP_LAUNCHES_MAX = 200
+TX_PLACE_SHAPE = (8192, 4096)  # tx96k_8192ch.resident's I/Q block
 
 
 def tx_config() -> TxChainConfig:
@@ -2553,6 +2558,8 @@ def phase_tx(report: dict, rng) -> dict:
     torch.cuda.synchronize()
     n_alc = agc_scan.tx_alc_scan.launches
     assert n_alc == TX_BLOCKS, n_alc
+    n_place = tx_place.launches
+    assert n_place == TX_BLOCKS, n_place
     for iq in out:
         assert iq.shape == (C, tx.block_tx) and iq.dtype == torch.complex64
         assert bool(torch.isfinite(torch.view_as_real(iq)).all())
@@ -2623,7 +2630,7 @@ def phase_tx(report: dict, rng) -> dict:
                          "alc_flips_own": flips_own,
                          "alc_max_abs_err_same": worst_same,
                          "image_db_worst": float(image.max()),
-                         "alc_launches": n_alc}
+                         "alc_launches": n_alc, "place_launches": n_place}
     return {"tx": tx, "blocks": blocks, "state": states[1],
             "alc_launches": n_alc}
 
@@ -2641,11 +2648,40 @@ def count_launches(fn) -> int:
                and not getattr(e, "is_user_annotation", False))
 
 
+def place_timing(dev) -> dict:
+    """csrc/tx_place.cu at the benchmark cell's [8192, 4096] (a chain at
+    96 kS/s, a tune a row), from a CUDA graph and call by call, beside its
+    byte bound (one read and one write of the block) and place_plain's ms,
+    the kernel within 1e-6 of place_plain's row peaks."""
+    rows, B = TX_PLACE_SHAPE
+    tx = TxChain.create(TxChainConfig(channels=rows, audio_block=B // 2,
+                                      tx_rate=96000.0, alc=False),
+                        device=dev)
+    tx = tx.set_tune(-24000.0 + 48000.0 * (np.arange(rows) + 0.5) / rows)
+    rng = np.random.default_rng(SEED + 27)
+    x = rng.standard_normal((rows, B), dtype=np.float32)
+    iq = torch.complex(torch.as_tensor(x, device=dev),
+                       torch.as_tensor(x[::-1].copy(), device=dev))
+    st = {"tune_phase": tx.tune.init_state(rows)}
+    ref = tx.place_plain(dict(st), iq)
+    got = tx.place(dict(st), iq)
+    rel = float(((got - ref).abs()
+                 / ref.abs().amax(-1, keepdim=True)).max())
+    assert rel <= 1e-6, rel
+    mbytes = 2 * rows * B * 8 / 1e6
+    return {"shape": [rows, B], "max_rel_err": rel,
+            "ms": graph_ms(lambda: tx.place(dict(st), iq)),
+            "call_ms": cuda_ms(lambda: tx.place(dict(st), iq), 20),
+            "plain_ms": cuda_ms(lambda: tx.place_plain(dict(st), iq), 10),
+            "bound_ms": mbytes * 1e6 / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "mbytes": mbytes, "library_ms": None}
+
+
 def phase_timing_tx(report: dict, smi: str, txr: dict) -> tuple:
     """The TX step (events, host clock, idle share), its stages on one
     block's real intermediates, the CUDA launches of TxALC (<= 40) and of
-    the whole step (<= 200).  Returns the ALC's [1024, 2048] arguments on
-    that block."""
+    the whole step (<= 200), and the place kernel at [8192, 4096].
+    Returns the ALC's [1024, 2048] arguments on that block."""
     tx, blocks, st = txr["tx"], txr["blocks"], txr["state"]
     dev = torch.device(DEVICE)
     ev_ms, host_ms = step_ms(tx, blocks, iters=20, warmup=3)
@@ -2685,13 +2721,21 @@ def phase_timing_tx(report: dict, smi: str, txr: dict) -> tuple:
           f"{TX_STEP_LAUNCHES_MAX})", flush=True)
     assert alc_launches <= ALC_LAUNCHES_MAX, alc_launches
     assert step_launches <= TX_STEP_LAUNCHES_MAX, step_launches
+    place = place_timing(dev)
+    print(f"  tx_place at {place['shape']}: {place['ms']:.4f} ms (from a "
+          f"CUDA graph; {place['call_ms']:.4f} call by call), plain "
+          f"{place['plain_ms']:.4f} ms, library none, bound "
+          f"{place['bound_ms']:.4f} ms by bytes ({place['mbytes']:.1f} MB); "
+          f"max |kernel - plain| / row peak {place['max_rel_err']:.3e}",
+          flush=True)
     idle = device_idle("TX", tx, blocks, ev_ms, front_kernel=False)
     report["tx_timing"] = {"ms_per_block": ev_ms, "host_ms_per_block":
                            host_ms, "msps_out": msps,
                            "realtime_factor": TX_AUDIO_MS / ev_ms,
                            "stages_ms": stages,
                            "launches_alc": alc_launches,
-                           "launches_step": step_launches, "idle": idle}
+                           "launches_step": step_launches, "idle": idle,
+                           "tx_place": place}
     return tx.alc.scan_inputs(st["alc"], iq)[1]
 
 
@@ -6348,9 +6392,10 @@ def ex_channelizer(tmp: str, smi: str) -> dict:
 
 
 def ex_transceiver(tmp: str, smi: str) -> dict:
-    """examples/torch_demo_transceiver.py: kTxAlc once a TX step, held to
-    its plain version on the SSB loopback's block 3; the loopback's 1 kHz
-    beat, IMD better after PureSignal, the live session's voice."""
+    """examples/torch_demo_transceiver.py: kTxAlc and tx_place once a TX
+    step, kTxAlc held to its plain version on the SSB loopback's block 3;
+    the loopback's 1 kHz beat, IMD better after PureSignal, the live
+    session's voice."""
     from quisk_tpu_torch.io.audio_in import AudioCapture
     ttx = example("torch_demo_transceiver")
     # each TX step's (chain, state, mic block); each mic block handed out
@@ -6362,8 +6407,8 @@ def ex_transceiver(tmp: str, smi: str) -> dict:
             lambda: ttx.run(DEVICE, os.path.join(tmp, "tx")),
             "transceiver (loopback SSB and FM, PureSignal, live session)",
             smi)
-    want = {"tx_alc_scan": len(steps), "agc_delay": sum(rx_agc),
-            "mixed_demod": len(rx_agc)}
+    want = {"tx_alc_scan": len(steps), "tx_place": len(steps),
+            "agc_delay": sum(rx_agc), "mixed_demod": len(rx_agc)}
     assert counts == {k: v for k, v in want.items() if v}, (counts, want)
     before, after = res["imd"]
     assert before - after > IMD_GAIN_DB, res["imd"]

@@ -33,7 +33,7 @@ from quisk_tpu_torch.ops.agc import TxALC
 from quisk_tpu_torch.ops.compress import OvershootControl, SoftCompressor
 from quisk_tpu_torch.ops.fir import OverlapSaveFIR
 from quisk_tpu_torch.ops.iir import PhaseRotator, Preemphasis
-from quisk_tpu_torch.ops.nco import NCO, freq_word, phase_tensor
+from quisk_tpu_torch.ops.nco import NCO, freq_word, phase_tensor, tx_place
 from quisk_tpu_torch.ops.resample import Interpolator
 from quisk_tpu_torch.rx.frontend import balance_matrix
 from quisk_tpu_torch.tx.puresignal import Predistorter
@@ -278,7 +278,18 @@ class TxChain:
         """Spot (microphone.c:1218: a plain carrier at the spot level), the
         TX tune NCO (sound.c:708: the IQ rotated up to the TX offset, so
         an RX tuned to +f recovers it) and the TX I/Q balance trim
-        (sound.c:735).  Updates the tune phase in ``st``."""
+        (sound.c:735).  Updates the tune phase in ``st``.  A CUDA tensor
+        launches ``csrc/tx_place.cu`` once (:func:`tx_place`), a CPU
+        tensor runs :meth:`place_plain`; any other device raises."""
+        if iq.device.type == "cpu":
+            return self.place_plain(st, iq)
+        st["tune_phase"], out = tx_place(iq, self.spot, self.tune.word,
+                                         st["tune_phase"], self.trim)
+        return out
+
+    def place_plain(self, st: dict, iq: torch.Tensor) -> torch.Tensor:
+        """:meth:`place` as torch ops on any device.  Updates the tune
+        phase in ``st``."""
         iq = torch.where(self.spot >= 0.0, self.spot.to(torch.complex64), iq)
         st["tune_phase"], ztune = self.tune.phasor(st["tune_phase"])
         iq = iq * ztune

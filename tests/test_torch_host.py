@@ -115,7 +115,7 @@ def test_port_sources_cover_the_pfb_and_conditioner_modules():
     assert {p.name for p in csrc.glob("*.cu")} == {
         "fused_tune_decimate.cu", "pfb_poly.cu", "pfb_demod.cu",
         "pll_demod.cu", "agc_scan.cu", "agc_delay.cu", "biquad.cu",
-        "mixed_demod.cu"}
+        "mixed_demod.cu", "tx_place.cu"}
     for cu in csrc.glob("*.cu"):               # hand kernels: no library
         text = cu.read_text()
         assert "cublas" not in text.lower() and "cufft" not in text.lower()
